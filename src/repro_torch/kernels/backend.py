@@ -33,11 +33,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # C entry points: name -> argtypes. Every pointer and the stream are
 # c_void_p (a plain c_int would truncate them to 32 bits).
@@ -46,6 +47,10 @@ _SIGNATURES = {
     "auction_bid_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # W, prices0, eps, r2c, c2r, prices, rounds, bids, B, n, P, max_iters, stream
     "auction_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, o, BH, group, Sq, Sk, D, scale, causal, window, dtype, stream
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    # xd, loga, B, C, y, states, gates, BH, S, L, N, P, dtype, stream
+    "ssd_chunk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -88,21 +93,34 @@ def library_path() -> Path:
 
 
 def build_library() -> Path:
-    """Compile every ``csrc/*.cu`` into one shared library (if not cached)."""
+    """Compile every ``csrc/*.cu`` into one shared library (if not cached).
+
+    One ``nvcc -c`` per source, all started together, then one link.
+    """
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in _sources():
+            obj = Path(tmpdir) / f"{src.stem}.o"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = Path(tmpdir) / out.name
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 

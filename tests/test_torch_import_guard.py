@@ -27,16 +27,25 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 raised = None
+model_raised = None
 if not torch.cuda.is_available():
     from repro_torch.api import solve_many
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
     try:
         solve_many(np.ones((1, 4, 4)), 2, 0.01, solver="spectra_torch")
     except RuntimeError as e:
         raised = str(e)
     else:
         raised = False
+    try:
+        build_model(get_arch("zamba2-1.2b").reduced())
+    except RuntimeError as e:
+        model_raised = str(e)
+    else:
+        model_raised = False
 print(json.dumps({"modules": names, "leaked": leaked, "raised": raised,
-                  "cuda": torch.cuda.is_available()}))
+                  "model_raised": model_raised, "cuda": torch.cuda.is_available()}))
 """
 
 
@@ -62,6 +71,9 @@ def test_import_loads_no_jax_and_no_reference(probe):
         "repro_torch.api.torch_backend", "repro_torch.core.torchopt.e2e",
         "repro_torch.kernels.auction_bid.ops", "repro_torch.kernels.auction_fused.ops",
         "repro_torch.interop", "repro_torch.traffic.workloads",
+        "repro_torch.configs.registry", "repro_torch.models.lm", "repro_torch.models.blocks",
+        "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.ssd_scan.ops",
+        "repro_torch.serve.engine", "repro_torch.launch.serve",
     ):
         assert name in probe["modules"]
 
@@ -71,3 +83,5 @@ def test_default_device_raises_without_cuda(probe):
         pytest.skip("a CUDA device is present; the default device is usable")
     assert probe["raised"], "solve_many with no device ran on the CPU"
     assert "device='cpu'" in probe["raised"]
+    assert probe["model_raised"], "build_model with no device ran on the CPU"
+    assert "device='cpu'" in probe["model_raised"]

@@ -5,7 +5,8 @@ Marked ``requires_cuda``: they skip without a CUDA device. On the GPU host
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m requires_cuda
 
-Both kernels must equal their plain versions exactly, on inputs full of ties.
+The auction kernels must equal their plain versions exactly, on inputs full
+of ties; flash_attention and ssd_chunk hold to the tolerances stated below.
 """
 
 import numpy as np
@@ -70,3 +71,58 @@ def test_fused_kernel_equals_plain(cuda, B, n):
     assert fused_auction.launches == before + 1
     for g, w in zip(got, fused_auction_ref(W, p0, eps, max_iters=default_max_iters(n))):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention and ssd_chunk: float32 to accumulation order (atol 1e-4),
+# bfloat16 to the rounding of the output (atol 2e-2 on values of order 1).
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import flash_attention, mha_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_ref, ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import _pick_chunk  # noqa: E402
+
+_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", [
+    (2, 4, 4, 256, 256, 64, True, None),
+    (1, 8, 2, 200, 200, 128, True, None),   # GQA, ragged tiles
+    (1, 4, 4, 300, 300, 32, True, 64),      # sliding window
+    (1, 4, 2, 100, 300, 64, True, None),    # Sq < Sk
+    (1, 2, 1, 77, 130, 64, False, None),    # no mask
+])
+def test_flash_kernel_equals_plain(cuda, dtype, B, Hq, Hkv, Sq, Sk, D, causal, window):
+    gen = torch.Generator(device=cuda).manual_seed(Sq)
+    q = torch.randn((B, Hq, Sq, D), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, Hkv, Sk, D), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, Hkv, Sk, D), generator=gen, device=cuda).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = mha_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_ATOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,N,P", [(8, 512, 64, 64), (4, 96, 16, 16), (2, 256, 128, 128), (3, 40, 8, 24)])
+def test_ssd_chunk_kernel_equals_plain(cuda, dtype, BH, S, N, P):
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    xd = torch.randn((BH, S, P), generator=gen, device=cuda).to(dtype)
+    loga = -0.5 * torch.rand((BH, S), generator=gen, device=cuda)
+    B = (torch.randn((BH, S, N), generator=gen, device=cuda) / N ** 0.5).to(dtype)
+    C = (torch.randn((BH, S, N), generator=gen, device=cuda) / N ** 0.5).to(dtype)
+    L = _pick_chunk(S)
+    before = ssd_chunk.launches
+    got = ssd_chunk(xd, loga, B, C, L)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == before + 1
+    for g, w in zip(got, ssd_chunk_ref(xd, loga, B, C, L)):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    if S <= 256:  # the whole op against the sequential scan
+        y, hT = ssd_scan(xd, loga, B, C)
+        y_ref, h_ref = ssd_ref(xd, loga, B, C)
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=0, atol=_ATOL[dtype])
+        torch.testing.assert_close(hT, h_ref, rtol=1e-4, atol=1e-4)

@@ -1,0 +1,112 @@
+"""The port's SSD op against the JAX reference, on the CPU.
+
+Inputs are made with numpy from a seed. The reference runs ``ssd_scan`` with
+its Pallas chunk kernel in interpret mode, and ``ssd_ref``; the port runs
+``ssd_scan`` on CPU tensors, whose chunk pass is the plain ``ssd_chunk_ref``.
+Tolerance rtol/atol 1e-4: the chunked and the sequential sums differ in
+order, and the port forms the cross-chunk recurrence in closed form where
+the reference runs an associative scan.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.ssd_scan.ops import _chunk_jnp, ssd_decode_step as jax_decode_step  # noqa: E402
+from repro.kernels.ssd_scan.ops import _pick_chunk as jax_pick_chunk, ssd_scan as jax_ssd_scan  # noqa: E402
+from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_decode_step, ssd_ref, ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import _pick_chunk  # noqa: E402
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _inputs(seed, BH, S, P, N, with_h0=False):
+    rng = np.random.default_rng(seed)
+    xd = rng.standard_normal((BH, S, P), dtype=np.float32)
+    loga = (-0.5 * rng.random((BH, S))).astype(np.float32)  # decays exp(loga) in (0.6, 1]
+    B = (rng.standard_normal((BH, S, N)) / np.sqrt(N)).astype(np.float32)
+    C = (rng.standard_normal((BH, S, N)) / np.sqrt(N)).astype(np.float32)
+    h0 = rng.standard_normal((BH, N, P), dtype=np.float32) if with_h0 else None
+    return xd, loga, B, C, h0
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("S", [32, 48, 64])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_matches_reference(S, with_h0):
+    args = _inputs(S, 3, S, 16, 8, with_h0)
+    y_k, h_k = jax_ssd_scan(*map(_j, args), impl="pallas", interpret=True)
+    y_r, h_r = jax_ssd_ref(*map(_j, args))
+    before = ssd_chunk.launches
+    y, hT = ssd_scan(*map(_t, args))
+    assert ssd_chunk.launches == before  # a CPU tensor takes the plain version
+    for want_y, want_h in ((y_k, h_k), (y_r, h_r)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **TOL)
+        np.testing.assert_allclose(hT.numpy(), np.asarray(want_h), **TOL)
+    y_s, h_s = ssd_ref(*map(_t, args))
+    np.testing.assert_allclose(y_s.numpy(), np.asarray(y_r), **TOL)
+    np.testing.assert_allclose(h_s.numpy(), np.asarray(h_r), **TOL)
+
+
+@pytest.mark.parametrize("S", [1, 33, 96, 256])
+def test_pick_chunk_and_chunk_pass_match_reference(S):
+    assert _pick_chunk(S) == jax_pick_chunk(S)
+    xd, loga, B, C, _ = _inputs(7, 2, S, 8, 4)
+    L = _pick_chunk(S)
+    want = _chunk_jnp(jnp.asarray(xd), jnp.asarray(loga), jnp.asarray(B), jnp.asarray(C), L)
+    got = ssd_chunk(*map(torch.from_numpy, (xd, loga, B, C)), L)
+    assert ssd_chunk_ref(*map(torch.from_numpy, (xd, loga, B, C)), L)[1].shape == (2, S // L, 4, 8)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+def test_decode_step_matches_reference_and_scan():
+    xd, loga, B, C, h0 = _inputs(3, 4, 8, 16, 8, with_h0=True)
+    h_j, y_j = jax_decode_step(jnp.asarray(h0), jnp.asarray(xd[:, 0]), jnp.asarray(loga[:, 0]),
+                               jnp.asarray(B[:, 0]), jnp.asarray(C[:, 0]))
+    h, y = ssd_decode_step(*map(torch.from_numpy, (h0, xd[:, 0], loga[:, 0], B[:, 0], C[:, 0])))
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_j), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), rtol=1e-6, atol=1e-6)
+    # Stepping token by token equals the chunked scan.
+    ys, hs = [], torch.from_numpy(h0)
+    for t in range(8):
+        hs, yt = ssd_decode_step(hs, *(torch.from_numpy(a[:, t]) for a in (xd, loga, B, C)))
+        ys.append(yt)
+    y_scan, h_scan = ssd_scan(*map(torch.from_numpy, (xd, loga, B, C, h0)))
+    np.testing.assert_allclose(torch.stack(ys, 1).numpy(), y_scan.numpy(), **TOL)
+    np.testing.assert_allclose(hs.numpy(), h_scan.numpy(), **TOL)
+
+
+def test_ssd_scan_gradients_match_jax():
+    args = _inputs(5, 2, 32, 8, 4, with_h0=True)
+
+    def loss(*a):
+        y, hT = jax_ssd_scan(*a, impl="pallas", interpret=True)
+        return (y ** 2).sum() + (hT ** 2).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, args))
+    ts = [torch.from_numpy(a).requires_grad_() for a in args]
+    y, hT = ssd_scan(*ts)
+    ((y ** 2).sum() + (hT ** 2).sum()).backward()
+    for t, w in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_chunk_rejects_bad_input():
+    xd, loga, B, C, _ = _inputs(0, 1, 32, 8, 4)
+    t = list(map(torch.from_numpy, (xd, loga, B, C)))
+    with pytest.raises(ValueError):
+        ssd_chunk(*t, 24)  # 32 % 24
+    with pytest.raises(ValueError):
+        ssd_chunk(t[0], t[1][:, :16], t[2], t[3], 16)

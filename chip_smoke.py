@@ -5,9 +5,12 @@
 1. Builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and holds each one against its plain PyTorch
    version on the card: the auction kernels exactly, ``flash_attention`` and
-   ``ssd_chunk`` to stated tolerances in float32 and bfloat16. It times
-   kernel, plain version and, where one exists, a single PyTorch call
-   computing the same function.
+   ``ssd_chunk`` to stated tolerances in float32 and bfloat16 (at the
+   forward's and the training's shapes), ``demand_accum`` against a float64
+   sum and its plain version within 1e-5 / 2e-5 of each cell's mass (float
+   atomics change the sum's order from run to run). It times kernel, plain
+   version and, where one exists, a single PyTorch call computing the same
+   function.
 2. Drives the solver's path, ``repro_torch.api.solve_many(...,
    solver="spectra_torch")``, on four shape buckets (gpt n=32, moe n=64,
    benchmark n=100, permutations n=512): one warm-up run of the gpt bucket,
@@ -26,7 +29,24 @@
    4 requests. Teacher forcing: the decode logits must replay the forward's,
    in float32 (the same weights) to 1e-3 of their norm, and in bf16 no
    further from the bf16 forward than that is from the float32 one.
-5. Prints one ``{"kernels": [...]}`` line and, last, the
+5. Holds one float32 ``train_step`` of zamba2-1.2b at full width and 7
+   layers (B = 1 × S = 256) on the GPU against the plain CPU path from the
+   same weights: the loss to 1e-5 relative, every gradient tensor to 1e-3 of
+   its own largest entry, the second step's loss to 1e-4 relative.
+6. Drives the training path, ``repro_torch.launch.train.make_trainer``
+   (``Trainer`` over ``make_train_step``), on zamba2-1.2b at full width and
+   depth, bf16 parameters and float32 moments: B = 2 × S = 2048 tokens of
+   ``make_stream(seed)``, 6 steps, the OCS tick every 2 steps on 4 switches
+   and 8 racks, a checkpoint at step 4 and a failure injected at step 5.
+   Every step must launch ``ssd_chunk`` 38 times and ``flash_attention`` 6
+   times (counters set to 0 just before each step; the backward recomputes
+   through the plain versions), every loss must be finite, the run must
+   restart once, its 3 tick entries must equal the port's host ``spectra``
+   on the same ring matrix, and steps 4–5 after the restore must agree with
+   an uninterrupted run to 1e-3 (the GPU's embedding backward sums with
+   atomics). One more step is split by CUDA events into forward, backward
+   and optimizer, with a torch.profiler breakdown by kernel group.
+7. Prints one ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero.
 
 Without a CUDA device, or without the repository beside it, it fails.
@@ -51,6 +71,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+
+TRAIN_STEPS = 6
+TRAIN_REMAT = False  # without it the run peaks at ~48 GB of the 80 (PERF.md §5)
 
 
 def fail(msg: str) -> None:
@@ -215,6 +238,7 @@ def phase_flash(rng) -> dict:
     tol = {torch.float32: dict(rtol=0.0, atol=1e-4), torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
     cases = [  # B, Hq, Hkv, Sq, Sk, D, causal, window
         (2, 32, 32, 4096, 4096, 64, True, None),  # zamba2-1.2b prefill
+        (2, 32, 32, 2048, 2048, 64, True, None),  # zamba2-1.2b training
         (1, 8, 2, 512, 512, 128, True, None),      # GQA 4:1
         (1, 4, 4, 1024, 1024, 64, True, 64),       # sliding window
         (1, 8, 2, 256, 1024, 64, True, None),      # Sq < Sk
@@ -257,7 +281,7 @@ def phase_ssd(rng) -> dict:
     from repro_torch.kernels.ssd_scan.ops import _pick_chunk
 
     max_err, timed = 0.0, None
-    for BH, S, N, P in [(128, 4096, 64, 64), (128, 96, 64, 64), (4, 256, 128, 128)]:
+    for BH, S, N, P in [(128, 4096, 64, 64), (128, 2048, 64, 64), (128, 96, 64, 64), (4, 256, 128, 128)]:
         L = _pick_chunk(S)
         for dtype in (torch.float32, torch.bfloat16):
             xd = torch.from_numpy(rng.standard_normal((BH, S, P), dtype=np.float32)).to("cuda", dtype)
@@ -402,7 +426,7 @@ def phase_zamba2(seed: int) -> dict:
     busy = sum(groups.values())
     print("zamba2-1.2b forward, device time by kernel (torch.profiler, one more forward): "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
-          + f"; busy {busy:.1f} ms of the {wall_ms:.1f} ms wall (idle share {max(0.0, 1 - busy / wall_ms):.3f})")
+          + f"; busy {busy:.1f} ms of the {wall_ms:.1f} ms wall (idle share {1 - busy / wall_ms:.3f})")
     for name, ms, count in top:
         print(f"  {ms:8.2f} ms  {count:5d} launches  {name}")
 
@@ -437,6 +461,254 @@ def phase_zamba2(seed: int) -> dict:
                            f"error {bf16_err}")
     del model32
     return launches
+
+
+def phase_demand_accum(rng) -> dict:
+    """demand_accum against a float64 sum and its plain version. Float
+    atomics sum in an order that changes from run to run, so the kernel must
+    lie within 1e-5 of each cell's mass Σ|w| (plus 1e-30) of the float64 sum
+    of the same events, and within twice that of the plain version (each of
+    the two lies within 1e-5 of the exact sum)."""
+    from repro_torch.kernels.demand_accum import demand_accum, demand_accum_ref, in_range
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+
+    def uniform(T, n, lo=0, hi=None):
+        hi = n if hi is None else hi
+        return (torch.randint(lo, hi, (T,), generator=gen, device=dev, dtype=torch.int32),
+                torch.randint(lo, hi, (T,), generator=gen, device=dev, dtype=torch.int32),
+                torch.rand((T,), generator=gen, device=dev))
+
+    cases = [  # name, n, (src, dst, w)
+        ("uniform T=2^23", 64, uniform(1 << 23, 64)),
+        ("uniform T=2^23", 512, uniform(1 << 23, 512)),
+        ("T=1000", 64, uniform(1000, 64)),
+        ("one cell T=2^16", 64, (torch.full((1 << 16,), 21, dtype=torch.int32, device=dev),
+                                 torch.full((1 << 16,), 42, dtype=torch.int32, device=dev),
+                                 torch.rand((1 << 16,), generator=gen, device=dev))),
+        ("out of range T=2^20", 130, uniform(1 << 20, 130, -5, 135)),
+        ("out of range T=2^20", 512, uniform(1 << 20, 512, -5, 517)),
+    ]
+    max_err, shapes = 0.0, []
+    for name, n, (src, dst, w) in cases:
+        got = demand_accum(src, dst, w, n=n)
+        torch.cuda.synchronize()
+        keep = in_range(src, dst, n)
+        idx = (src[keep].long(), dst[keep].long())
+        exact = torch.zeros((n, n), dtype=torch.float64, device=dev).index_put_(idx, w[keep].double(), accumulate=True)
+        mass = torch.zeros((n, n), dtype=torch.float64, device=dev).index_put_(idx, w[keep].double().abs(),
+                                                                               accumulate=True)
+        plain = demand_accum_ref(src, dst, w, n)
+        err_exact = float(((got.double() - exact).abs() / (mass + 1e-30)).max())
+        err_plain = float(((plain.double() - exact).abs() / (mass + 1e-30)).max())
+        check(bool(((got.double() - exact).abs() <= 1e-5 * mass + 1e-30).all()),
+              f"demand_accum {name} n={n}: kernel off the float64 sum by {err_exact} of the cell mass")
+        check(bool(((got.double() - plain.double()).abs() <= 2e-5 * mass + 1e-30).all()),
+              f"demand_accum {name} n={n}: kernel differs from its plain version beyond 2e-5 of the cell mass")
+        max_err = max(max_err, float((got - plain).abs().max()))
+        print(f"demand_accum {name} n={n}: kernel within {err_exact:.3g} of the cell mass of the float64 sum "
+              f"(plain version {err_plain:.3g}), max |kernel − plain| {float((got - plain).abs().max()):.3g}")
+        if name.startswith("uniform"):
+            T = src.shape[0]
+            ms = cuda_ms(lambda: demand_accum(src, dst, w, n=n), 20)
+            plain_ms = cuda_ms(lambda: demand_accum_ref(src, dst, w, n), 5, warmup=1)
+            flat = (src[keep].long() * n + dst[keep].long()).contiguous()
+            wk = w[keep].contiguous()
+            lib_ms = cuda_ms(lambda: torch.bincount(flat, weights=wk, minlength=n * n), 20)
+            b_ms, b_by = bound(12.0 * T + 4.0 * n * n, float(T))
+            shapes.append(dict(shape=[T, n], ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                               bound_by=b_by))
+            print(f"demand_accum T={T} n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bincount "
+                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    main = dict(shapes[0], max_abs_err=max_err, shapes=shapes)
+    return main
+
+
+def train_setup(seed: int, **kw):
+    """The launcher's trainer for zamba2-1.2b at full width and depth, bf16:
+    B = 2 × S = 2048 tokens of ``make_stream(seed)``, 6 steps at
+    ``warmup_stable_decay(3e-4, 6)``, the OCS tick every 2 steps on 4 switches
+    with δ = 20 µs over 8 racks (``examples/train_gpt_ocs.py``'s fabric)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import make_trainer
+
+    return make_trainer(get_arch("zamba2-1.2b"), steps=TRAIN_STEPS, batch=2, seq=2048, lr=3e-4, seed=seed,
+                        ocs_switches=4, ocs_delta_us=20.0, ocs_every=2, remat=TRAIN_REMAT, log_every=1, **kw)
+
+
+def counted(step_fn, log: list):
+    """``step_fn`` with the LM kernels' counters set to 0 just before each
+    call and read just after it, into ``log``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    def run(*args):
+        flash_attention.launches = ssd_chunk.launches = 0
+        out = step_fn(*args)
+        log.append({"flash_attention": flash_attention.launches, "ssd_chunk": ssd_chunk.launches})
+        return out
+
+    return run
+
+
+def step_breakdown(tr, state) -> tuple[dict, dict, float]:
+    """Two more steps of ``tr`` from ``state``: one split by CUDA events into
+    the forward (``LM.loss``), the backward and the optimizer, then one under
+    torch.profiler for the device time by kernel group (the profiler slows
+    the host, so the split is taken without it). The step's parts are those
+    of ``make_train_step``: ``loss_and_grads``, then ``AdamW.update``.
+    Returns the split, the groups and the profiled step's own event span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model, opt = tr.model, tr.optimizer
+    batch = tr.stream.next_batch(0)
+
+    def step(ev):
+        leaves = {k: v.detach().requires_grad_() for k, v in state.params.items()}
+        with torch.enable_grad(), model.bound(leaves):
+            ev[0].record()
+            loss, _ = model.loss(batch)
+            ev[1].record()
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            ev[2].record()
+        opt.update(dict(zip(leaves, grads)), state.opt_state, state.params)
+        ev[3].record()
+        torch.cuda.synchronize()
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    step(ev)
+    phases = {"forward": ev[0].elapsed_time(ev[1]), "backward": ev[1].elapsed_time(ev[2]),
+              "optimizer": ev[2].elapsed_time(ev[3])}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(ev)
+    span = ev[0].elapsed_time(ev[3])
+    groups: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        if "ssd_chunk" in name:
+            group = "ssd_chunk"
+        elif "flash_attention" in name:
+            group = "flash_attention"
+        elif any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
+            group = "matmul (cuBLAS)"
+        elif "multi_tensor" in name or "foreach" in name:
+            group = "optimizer (foreach)"
+        else:
+            group = "other (elementwise, copies, reductions)"
+        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+    return phases, groups, span
+
+
+def phase_train(seed: int) -> dict:
+    """The training path at full size: ``Trainer`` over ``make_train_step``
+    with a checkpoint at step 4 and a failure injected at step 5, then an
+    uninterrupted run of the same 6 steps to compare with."""
+    import tempfile
+
+    from repro_torch.fabric import OCSFabric
+    from repro_torch.train.fault_tolerance import fail_at
+    from repro_torch.train.loop import _demand_from_stats
+
+    B, S = 2, 2048
+    per_step: list = []
+    with tempfile.TemporaryDirectory(prefix="zamba2_ckpt_") as ckpt:
+        tr = train_setup(seed, ckpt_dir=ckpt, ckpt_every=4, ckpt_keep=1, failure_injector=fail_at({5}))
+        tr.train_step = counted(tr.train_step, per_step)
+        n_params = tr.model.param_count()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = tr.run(seed)
+        run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"zamba2-1.2b training: {n_params / 1e9:.3f} B parameters in bf16, float32 moments, remat {TRAIN_REMAT}; "
+          f"B={B} S={S}, {TRAIN_STEPS} steps, checkpoint at 4, failure at 5: run {run_s:.1f} s, peak memory "
+          f"{peak_gb:.2f} GB, restarts {state.restarts}")
+    losses = [h["loss"] for h in state.history]
+    for h, launches in zip(state.history, per_step[:len(state.history)]):
+        print(f"  step {h['step']}: loss {h['loss']:.5f}, wall {h['time_s'] * 1e3:.1f} ms, launches {launches}")
+    check(state.restarts == 1 and state.step == TRAIN_STEPS, f"restarts {state.restarts}, final step {state.step}")
+    check([h["step"] for h in state.history] == [0, 1, 2, 3, 4, 4, 5], f"history {state.history}")
+    check(all(np.isfinite(losses)), f"training losses not finite: {losses}")
+    want = {"flash_attention": 6, "ssd_chunk": 38}
+    check(len(per_step) == len(state.history) and all(c == want for c in per_step),
+          f"launches per step {per_step}, expected {want} in each of {len(state.history)} steps")
+    walls = [h["time_s"] * 1e3 for h in state.history[1:]]
+    wall_ms = float(np.mean(walls))
+    print(f"zamba2-1.2b train step after the first: wall {wall_ms:.1f} ms (min {min(walls):.1f}, max "
+          f"{max(walls):.1f}), {B * S / wall_ms * 1e3:.0f} tokens/s")
+
+    # The OCS tick: 3 entries, each the port's own host spectra on the ring.
+    check(len(state.cct_log) == 3 and [r["step"] for r in state.cct_log] == [1, 3, 5], f"cct_log {state.cct_log}")
+    ring = _demand_from_stats(8, {}, 0)
+    res, cct = OCSFabric(num_switches=4, reconfig_delay_s=20e-6).schedule_bytes(ring * 1e9)
+    for r in state.cct_log:
+        check(abs(r["cct_s"] - cct) <= 1e-12 * cct and abs(r["makespan"] - res.makespan) <= 1e-12 * res.makespan
+              and r["configs"] == res.schedule.num_configs(), f"tick {r} differs from host spectra ({cct} s)")
+        print(f"  OCS tick after step {r['step']}: CCT {r['cct_s'] * 1e3:.4f} ms, makespan {r['makespan']:.6f}, "
+              f"LB {r['lb']:.6f}, {r['configs']} circuits")
+    del tr, state
+
+    # The same 6 steps without the failure: steps 4 and 5 after the restore
+    # must agree to 1e-3 (the GPU's embedding backward sums with atomics).
+    tr = train_setup(seed)
+    clean = tr.run(seed)
+    clean_losses = [h["loss"] for h in clean.history]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[-2:], clean_losses[-2:])]
+    print(f"uninterrupted run, losses {[round(x, 5) for x in clean_losses]}; steps 4-5 after the restore differ "
+          f"by {[f'{r:.3g}' for r in rel]} (relative)")
+    check(max(rel) <= 1e-3, f"restored losses {losses[-2:]} vs uninterrupted {clean_losses[-2:]}")
+
+    phases, groups, span = step_breakdown(tr, clean)
+    busy = sum(groups.values())
+    print("zamba2-1.2b train step, device time by phase (CUDA events, one step): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in phases.items()) + f", together {sum(phases.values()):.1f} ms; "
+          + "by kernel group (torch.profiler, one more step): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+          + f", busy {busy:.1f} ms of that step's {span:.1f} ms event span (idle share {1 - busy / span:.3f}, the "
+          + f"profiler's host work included; busy over the unprofiled step's span {1 - busy / sum(phases.values()):.3f})")
+    del tr, clean
+    return {k: sum(c[k] for c in per_step) for k in want}
+
+
+def phase_train_parity(seed: int) -> None:
+    """zamba2-1.2b at full width, 7 layers, float32, B = 1 × S = 256: one
+    ``train_step`` on the GPU and on the plain CPU path from the same
+    weights. The loss to 1e-5 relative, every gradient tensor to 1e-3 of its
+    own largest entry, the second step's loss to 1e-4 relative."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_stream
+    from repro_torch.models import build_model
+    from repro_torch.parallel.steps import loss_and_grads, make_train_step
+    from repro_torch.train.optimizer import AdamW, warmup_stable_decay
+
+    cfg = replace(get_arch("zamba2-1.2b"), num_layers=7, dtype="float32")
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev, seed=seed)
+        params = {k: v.to(dev) for k, v in sides["cuda"][0].items()} if sides else model.init(seed)
+        opt = AdamW(schedule=warmup_stable_decay(3e-4, 6))
+        stream = make_stream(cfg.vocab_size, 256, 1, seed=seed, device=dev)
+        loss, _, grads = loss_and_grads(model, params, stream.next_batch(0))
+        step = make_train_step(model, opt)
+        p1, s1, m1 = step(params, opt.init(params), stream.next_batch(0))
+        _, _, m2 = step(p1, s1, stream.next_batch(1))
+        sides[dev] = (params, float(loss), {k: g.cpu() for k, g in grads.items()}, float(m1["loss"]), float(m2["loss"]))
+        del model, p1, s1
+    (_, l0g, gg, l1g, l2g), (_, l0c, gc, l1c, l2c) = sides["cuda"], sides["cpu"]
+    worst = max(float((gg[k] - gc[k]).abs().max() / max(float(gc[k].abs().max()), 1e-30)) for k in gc)
+    print(f"zamba2-1.2b full width, 7 layers, float32, B=1 S=256, train step GPU vs plain CPU path: loss "
+          f"{l0g:.6f} vs {l0c:.6f}; worst gradient tensor {worst:.3g} of its largest entry; second step's loss "
+          f"{l2g:.6f} vs {l2c:.6f}")
+    check(abs(l0g - l0c) <= 1e-5 * abs(l0c) and abs(l1g - l1c) <= 1e-5 * abs(l1c), f"train parity: loss {l0g} vs {l0c}")
+    check(worst <= 1e-3, f"train parity: a gradient differs by {worst} of its largest entry")
+    check(abs(l2g - l2c) <= 1e-4 * abs(l2c), f"train parity: second step's loss {l2g} vs {l2c}")
 
 
 def buckets(seed: int):
@@ -518,11 +790,15 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.kernels.demand_accum import demand_accum
+
     rng = np.random.default_rng(args.seed)
     bid = phase_bid(rng)
     fused = phase_fused(rng)
     flash = phase_flash(rng)
     ssd = phase_ssd(rng)
+    accum = phase_demand_accum(rng)
+    demand_accum.launches = 0  # no system path runs it: read after the last one
     t0 = time.perf_counter()
     launches = phase_main_path(args.seed)
     print(f"solver path: {time.perf_counter() - t0:.1f} s")
@@ -531,6 +807,11 @@ def main() -> None:
     phase_model_parity(args.seed)
     launches.update(phase_zamba2(args.seed))
     print(f"LM phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_train_parity(args.seed)
+    train_launches = phase_train(args.seed)
+    print(f"training phases: {time.perf_counter() - t0:.1f} s")
+    launches["demand_accum"] = demand_accum.launches
 
     bid_main = bid["shapes"][1]  # (8, 64): the moe bucket, the most bid launches
     kernels = [
@@ -545,15 +826,24 @@ def main() -> None:
              bound_ms=fused["bound_ms"], bound_by=fused["bound_by"], library_ms=None,
              shape=fused["shape"], rounds=fused["rounds"], bids=fused["bids"]),
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention/kernel.py:29", launches=launches["flash_attention"],
+             replaces="src/repro/kernels/flash_attention/kernel.py:29",
+             launches=launches["flash_attention"] + train_launches["flash_attention"],
+             launches_by_path={"forward": launches["flash_attention"], "train": train_launches["flash_attention"]},
              max_abs_err=flash["max_abs_err"], ms=flash["ms"], plain_ms=flash["plain_ms"],
              bound_ms=flash["bound_ms"], bound_by=flash["bound_by"], library_ms=flash["library_ms"],
              shape=flash["shape"], dtype=flash["dtype"]),
         dict(name="ssd_chunk", route="cuda", source="src/repro_torch/csrc/ssd_chunk.cu",
-             replaces="src/repro/kernels/ssd_scan/kernel.py:25", launches=launches["ssd_chunk"],
+             replaces="src/repro/kernels/ssd_scan/kernel.py:25",
+             launches=launches["ssd_chunk"] + train_launches["ssd_chunk"],
+             launches_by_path={"forward": launches["ssd_chunk"], "train": train_launches["ssd_chunk"]},
              max_abs_err=ssd["max_abs_err"], ms=ssd["ms"], plain_ms=ssd["plain_ms"],
              bound_ms=ssd["bound_ms"], bound_by=ssd["bound_by"], library_ms=None,
              shape=ssd["shape"], chunk=ssd["chunk"], dtype=ssd["dtype"]),
+        dict(name="demand_accum", route="cuda", source="src/repro_torch/csrc/demand_accum.cu",
+             replaces="src/repro/kernels/demand_accum/kernel.py:24", launches=launches["demand_accum"],
+             max_abs_err=accum["max_abs_err"], ms=accum["ms"], plain_ms=accum["plain_ms"],
+             bound_ms=accum["bound_ms"], bound_by=accum["bound_by"], library_ms=accum["library_ms"],
+             shape=accum["shape"], shapes=accum["shapes"]),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -64,7 +64,7 @@ class SolveReport:
     """Uniform result of any registered solver."""
 
     solver: str
-    backend: str                   # "torch"
+    backend: str                   # "torch" (device) or "numpy" (host)
     schedule: ParallelSchedule
     makespan: float
     lower_bound: float             # NaN when compute_lb=False

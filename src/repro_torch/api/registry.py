@@ -1,14 +1,20 @@
 """String-addressable solver registry: ``solve(problem, solver="spectra_torch")``.
 
 A solver is any callable ``(Problem, SolveOptions) -> SolveReport``. The
-port registers ``spectra_torch`` (the fused device pipeline); add others
-with ``register_solver``.
+port registers
+
+    spectra_torch    the fused batched DECOMPOSE+LPT+EQUALIZE on the device
+    spectra          host DECOMPOSE → LPT → EQUALIZE (numpy; the OCS tick's)
+    spectra_no_eq    the same, without EQUALIZE
+
+and ``register_solver`` adds others.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+from .pipeline import Pipeline
 from .problem import Problem, SolveOptions, SolveReport
 from .torch_backend import solve_spectra_torch
 
@@ -51,4 +57,10 @@ def solve(
     return report
 
 
+def _pipeline_solver(name: str, pipeline: Pipeline) -> None:
+    register_solver(name, lambda problem, options, _p=pipeline: _p(problem, options))
+
+
 register_solver("spectra_torch", solve_spectra_torch)
+_pipeline_solver("spectra", Pipeline())
+_pipeline_solver("spectra_no_eq", Pipeline(equalize="none"))

@@ -1,15 +1,20 @@
 """Host schedule objects: one switch's (permutation, weight) sequence and
-the parallel schedule over s switches, with the Eq. 3 coverage check.
+the parallel schedule over s switches, with the Eq. 3 coverage check; and
+SCHEDULE (Alg. 3), the LPT placement of weighted permutations on s switches
+with a setup cost δ per permutation.
 
-A copy of the same classes in ``repro.core.schedule``, kept here so the
-port depends on nothing of the reference package.
+A copy of ``repro.core.schedule``, kept here so the port depends on nothing
+of the reference package.
 """
 
 from __future__ import annotations
 
+import heapq
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from .decompose import Decomposition
 
 
 @dataclass
@@ -68,3 +73,20 @@ class ParallelSchedule:
         gap = float((D - cov).max())
         if gap > tol:
             raise AssertionError(f"schedule does not cover D: max gap {gap}")
+
+
+def schedule_lpt(dec: Decomposition, s: int, delta: float) -> ParallelSchedule:
+    """Alg. 3: sort by non-increasing weight, greedily place on least-loaded."""
+    if s < 1:
+        raise ValueError("need at least one switch")
+    order = np.argsort(-np.asarray(dec.alphas), kind="stable")
+    switches = [SwitchSchedule() for _ in range(s)]
+    # (load, switch index) min-heap — ties broken by lowest index, as in Alg.3.
+    heap = [(0.0, h) for h in range(s)]
+    heapq.heapify(heap)
+    for i in order:
+        load, h = heapq.heappop(heap)
+        switches[h].perms.append(dec.perms[i])
+        switches[h].alphas.append(float(dec.alphas[i]))
+        heapq.heappush(heap, (load + delta + float(dec.alphas[i]), h))
+    return ParallelSchedule(switches=switches, delta=delta)

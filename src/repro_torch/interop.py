@@ -2,7 +2,9 @@
 
 ``params_from_reference`` turns the reference's ``LM.init`` parameter tree
 into the port's ``state_dict`` (and ``params_to_reference`` back), so both
-models compute with the same weights.
+models compute with the same weights; ``opt_state_from_reference`` and
+``opt_state_to_reference`` do the same for the AdamW state (``mu``, ``nu``,
+``step``), so both sides can start a step from one ``(params, opt_state)``.
 
 ``from_reference`` turns the arrays of a reference ``JaxDecomposition``,
 ``DeviceSchedule`` or ``E2EResult`` (taken out with ``np.asarray``) into the
@@ -164,3 +166,18 @@ def params_to_reference(cfg: ModelConfig, state_dict: dict[str, torch.Tensor]) -
     else:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     return tree
+
+
+def opt_state_from_reference(cfg: ModelConfig, state: dict) -> dict:
+    """The port's AdamW state from the reference's ``AdamW.init``/``update``
+    state (numpy leaves): ``mu``/``nu`` keyed like the parameters, ``step``
+    a 0-d int32 tensor on the host."""
+    return {"mu": params_from_reference(cfg, state["mu"]), "nu": params_from_reference(cfg, state["nu"]),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32)}
+
+
+def opt_state_to_reference(cfg: ModelConfig, state: dict) -> dict:
+    """The inverse of ``opt_state_from_reference``, with float32 numpy leaves
+    and an int32 ``step``."""
+    return {"mu": params_to_reference(cfg, state["mu"]), "nu": params_to_reference(cfg, state["nu"]),
+            "step": np.asarray(int(state["step"]), dtype=np.int32)}

@@ -4,4 +4,5 @@
     auction_fused    the whole ε-scaling auction (csrc/auction_fused.cu)
     flash_attention  GQA online-softmax attention (csrc/flash_attention.cu)
     ssd_scan         the Mamba-2 SSD intra-chunk pass (csrc/ssd_chunk.cu)
+    demand_accum     traffic events into a demand matrix (csrc/demand_accum.cu)
 """

@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry points: name -> argtypes. Every pointer and the stream are
 # c_void_p (a plain c_int would truncate them to 32 bits).
@@ -51,6 +52,8 @@ _SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # xd, loga, B, C, y, states, gates, BH, S, L, N, P, dtype, stream
     "ssd_chunk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # src, dst, w, out, T, n, idx64, stream
+    "demand_accum_launch": [_P, _P, _P, _P, _L, _I, _I, _P],
 }
 
 

@@ -10,8 +10,11 @@ cross-chunk recurrence ``H_out(c) = gate_c · H_in(c) + state_c`` (here in its
 closed form, one batched product with the decays between chunks, where the
 reference runs an associative scan), and the inter-chunk correction
 ``y += (C ⊙ exp(la)) @ H_in``. It is a ``torch.autograd.Function`` whose
-backward recomputes through the sequential ``ssd_ref``, as the reference's
-``custom_vjp`` does. ``ssd_decode_step`` is the one-token serving update.
+backward recomputes through ``ssd_chunked``, the same function with the
+plain ``ssd_chunk_ref`` in place of the kernel (the counterpart of the
+reference's ``ssd_chunked``, which its training paths differentiate), so
+``h0`` gets its gradient too. ``ssd_decode_step`` is the one-token serving
+update.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from .. import backend
-from .ref import ssd_chunk_ref, ssd_decode_step_ref, ssd_ref
+from .ref import ssd_chunk_ref, ssd_decode_step_ref
 
 MAX_DIM = 128  # the kernel's bound on the chunk length, N and P
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,12 +77,12 @@ def ssd_chunk(xd: torch.Tensor, loga: torch.Tensor, B: torch.Tensor, C: torch.Te
 ssd_chunk.launches = 0
 
 
-def _ssd_fwd(xd, loga, B, C, h0):
+def _ssd_fwd(xd, loga, B, C, h0, chunk_fn=ssd_chunk):
     BH, S, P = xd.shape
     N = B.shape[-1]
     chunk = _pick_chunk(S)
     nc = S // chunk
-    y_intra, states, _ = ssd_chunk(xd, loga, B, C, chunk)
+    y_intra, states, _ = chunk_fn(xd, loga, B, C, chunk)
     la = torch.cumsum(loga.float().reshape(BH, nc, chunk), dim=-1)
     # Log-decay from the start to the start of chunk c, for c = 0..nc. The
     # gates are exp(la[..., -1]); their logs would underflow to −inf.
@@ -107,8 +110,14 @@ class _SSD(torch.autograd.Function):
     def backward(ctx, gy, ghT):
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            y, hT = ssd_ref(*inputs)
+            y, hT = ssd_chunked(*inputs)
             return torch.autograd.grad((y, hT), inputs, (gy, ghT))
+
+
+def ssd_chunked(xd: torch.Tensor, loga: torch.Tensor, B: torch.Tensor, C: torch.Tensor, h0: torch.Tensor):
+    """The differentiable plain chunked SSD: ``ssd_scan``'s forward with
+    ``ssd_chunk_ref`` in place of the kernel (no launch on any device)."""
+    return _ssd_fwd(xd.contiguous(), loga.contiguous(), B.contiguous(), C.contiguous(), h0, ssd_chunk_ref)
 
 
 def ssd_scan(xd: torch.Tensor, loga: torch.Tensor, B: torch.Tensor, C: torch.Tensor,

@@ -13,12 +13,21 @@ Counterpart of ``repro.models.lm.LM``:
 The layers the reference stacks for ``lax.scan`` are ``nn.ModuleList``s
 here, run by a Python loop. The moe, audio and vlm families are not ported
 yet (ROADMAP Queue 1) and raise ``NotImplementedError``.
+
+Training is functional, as in the reference: ``init(seed)`` gives a fresh
+parameter dict (the port's state names), ``bound(params)`` computes with
+such a dict in place of the model's own parameters, and ``loss(batch)`` is
+the next-token NLL. ``remat`` (the reference's field) checkpoints each
+scanned block: a period (dense), a layer (ssm) or a group (hybrid).
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.backend import resolve_device
@@ -48,19 +57,20 @@ def hybrid_layout(cfg: ModelConfig) -> tuple[int, int]:
 
 
 class LM(nn.Module):
-    """``LM(cfg, device=None, seed=0)``: the model with fresh random weights.
+    """``LM(cfg, device=None, seed=0, remat=False)``: the model with fresh random weights.
 
     ``device=None`` means CUDA and raises without a GPU; the CPU runs only
     when named. Weights are drawn by a ``torch.Generator`` on the device,
     seeded with ``seed``, at the reference's scales and in the config's type.
     """
 
-    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0, remat: bool = False):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1: the MoE, audio and VLM families)")
         self.cfg = cfg
+        self.remat = remat
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         kw = dict(dtype=torch_dtype(cfg), device=dev)
@@ -86,7 +96,63 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    # ------------------------------------------------------------ training
+    def init(self, seed: int) -> dict[str, torch.Tensor]:
+        """Fresh parameters from ``seed`` on the model's device, keyed by the
+        port's state names (the reference's ``LM.init(key)``)."""
+        return dict(LM(self.cfg, device=self.device, seed=seed).state_dict())
+
+    def adopt(self, params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Make ``params`` the model's own parameters, without a copy, and
+        return the ones they replace. The trainer adopts its state after each
+        step, so the weights live on the device once."""
+        own = dict(self.named_parameters())
+        if set(params) != set(own):
+            raise KeyError(f"parameters do not match the model: missing {sorted(set(own) - set(params))[:3]}, "
+                           f"unknown {sorted(set(params) - set(own))[:3]}")
+        for name, t in params.items():
+            mod_name, _, attr = name.rpartition(".")
+            self.get_submodule(mod_name)._parameters[attr] = t
+        return own
+
+    @contextmanager
+    def bound(self, params: dict[str, torch.Tensor]):
+        """Compute with ``params`` in place of the model's own parameters,
+        without a copy (autograd then reaches ``params``); the model's own
+        come back on exit. With ``remat`` the backward recomputes blocks, so
+        it must run inside the context too."""
+        own = self.adopt(params)
+        try:
+            yield self
+        finally:
+            self.adopt(own)
+
+    def loss(self, batch: dict):
+        """Next-token NLL of ``batch["tokens"]`` (masked by ``loss_mask`` when
+        given) → (loss, metrics) with metrics ``ce``."""
+        out = self.apply(batch)
+        tokens = batch["tokens"].to(self.device).long()
+        lp = torch.log_softmax(out["logits"][:, :-1], dim=-1)
+        nll = -torch.gather(lp, -1, tokens[:, 1:, None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask.to(device=self.device, dtype=nll.dtype)[:, 1:]
+            nll = nll * mask
+            denom = torch.clamp(mask.sum(), min=1.0)
+        else:
+            denom = nll.numel()
+        ce = nll.sum() / denom
+        loss = ce + out["aux_loss"] if "aux_loss" in out else ce
+        return loss, {"ce": ce}
+
     # ------------------------------------------------------------- forward
+    def _block(self, run, x, decode: bool):
+        """One scanned block ``run(x) → (x, caches)``, checkpointed when
+        ``remat`` and a gradient is being recorded (full sequence only)."""
+        if decode or not (self.remat and torch.is_grad_enabled()):
+            return run(x)
+        return checkpoint(lambda x: run(x)[0], x, use_reentrant=False), None
+
     def _backbone(self, x, positions, caches=None):
         """Decoder trunk; ``caches=None`` is the full-sequence forward."""
         cfg = self.cfg
@@ -105,11 +171,14 @@ class LM(nn.Module):
             period, _, rem = layer_pattern(cfg)
             new_periods = []
             for i, layers in enumerate(self.periods):
-                ncs = []
-                for j, (layer, local) in enumerate(zip(layers, period)):
-                    x, nc = layer(x, positions=positions, window=cfg.window if local else None,
-                                  cache=cache_of("periods", i, j))
-                    ncs.append(nc)
+                def run_period(x, i=i, layers=layers):
+                    ncs = []
+                    for j, (layer, local) in enumerate(zip(layers, period)):
+                        x, nc = layer(x, positions=positions, window=cfg.window if local else None,
+                                      cache=cache_of("periods", i, j))
+                        ncs.append(nc)
+                    return x, ncs
+                x, ncs = self._block(run_period, x, decode)
                 new_periods.append(ncs)
             new_rem = []
             for i, (layer, local) in enumerate(zip(self.remainder, rem)):
@@ -120,18 +189,21 @@ class LM(nn.Module):
         elif cfg.family == "ssm":
             ncs = []
             for i, layer in enumerate(self.layers):
-                x, nc = layer(x, cache=cache_of("layers", i))
+                x, nc = self._block(lambda x, i=i, layer=layer: layer(x, cache=cache_of("layers", i)), x, decode)
                 ncs.append(nc)
             new = {"layers": ncs}
         else:
             new_groups = []
             for g, group in enumerate(self.groups):
-                m_ncs = []
-                for i, layer in enumerate(group):
-                    x, nc = layer(x, cache=cache_of("groups", g, "mamba", i))
-                    m_ncs.append(nc)
-                x, a_nc = self.shared_attn(x, positions=positions, cache=cache_of("groups", g, "attn"))
-                new_groups.append({"mamba": m_ncs, "attn": a_nc})
+                def run_group(x, g=g, group=group):
+                    m_ncs = []
+                    for i, layer in enumerate(group):
+                        x, nc = layer(x, cache=cache_of("groups", g, "mamba", i))
+                        m_ncs.append(nc)
+                    x, a_nc = self.shared_attn(x, positions=positions, cache=cache_of("groups", g, "attn"))
+                    return x, {"mamba": m_ncs, "attn": a_nc}
+                x, nc = self._block(run_group, x, decode)
+                new_groups.append(nc)
             new_rem = []
             for i, layer in enumerate(self.remainder):
                 x, nc = layer(x, cache=cache_of("remainder", i))

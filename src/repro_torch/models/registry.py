@@ -10,9 +10,10 @@ from ..kernels.backend import resolve_device
 from .lm import LM
 
 
-def build_model(cfg: ModelConfig, *, device=None, seed: int = 0) -> LM:
-    """The model with random weights from ``seed``; ``device=None`` means CUDA."""
-    return LM(cfg, device=device, seed=seed)
+def build_model(cfg: ModelConfig, *, device=None, seed: int = 0, remat: bool = False) -> LM:
+    """The model with random weights from ``seed``; ``device=None`` means CUDA.
+    ``remat`` checkpoints each scanned block in the backward (``LM.remat``)."""
+    return LM(cfg, device=device, seed=seed, remat=remat)
 
 
 def concrete_inputs(cfg: ModelConfig, shape: ShapeCfg, seed: int = 0, device=None) -> dict:

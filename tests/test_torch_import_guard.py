@@ -28,6 +28,8 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 raised = None
 model_raised = None
+train_raised = None
+trainer_raised = None
 if not torch.cuda.is_available():
     from repro_torch.api import solve_many
     from repro_torch.configs import get_arch
@@ -44,8 +46,25 @@ if not torch.cuda.is_available():
         model_raised = str(e)
     else:
         model_raised = False
+    from repro_torch.launch.train import main as train_main, make_trainer
+    from repro_torch.train.loop import Trainer
+    sys.argv = ["train", "--arch", "zamba2-1.2b", "--steps", "1", "--batch", "1", "--seq", "8"]
+    try:
+        train_main()
+    except RuntimeError as e:
+        train_raised = str(e)
+    else:
+        train_raised = False
+    cpu = make_trainer(get_arch("zamba2-1.2b").reduced(), steps=1, batch=1, seq=8, lr=1e-3, device="cpu")
+    try:
+        Trainer(cpu.model, cpu.optimizer, cpu.stream, cpu.train_step, cpu.cfg)
+    except RuntimeError as e:
+        trainer_raised = str(e)
+    else:
+        trainer_raised = False
 print(json.dumps({"modules": names, "leaked": leaked, "raised": raised,
-                  "model_raised": model_raised, "cuda": torch.cuda.is_available()}))
+                  "model_raised": model_raised, "train_raised": train_raised,
+                  "trainer_raised": trainer_raised, "cuda": torch.cuda.is_available()}))
 """
 
 
@@ -74,6 +93,10 @@ def test_import_loads_no_jax_and_no_reference(probe):
         "repro_torch.configs.registry", "repro_torch.models.lm", "repro_torch.models.blocks",
         "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.ssd_scan.ops",
         "repro_torch.serve.engine", "repro_torch.launch.serve",
+        "repro_torch.kernels.demand_accum.ops", "repro_torch.launch.train", "repro_torch.train.loop",
+        "repro_torch.train.checkpoint", "repro_torch.train.fault_tolerance", "repro_torch.train.optimizer",
+        "repro_torch.data.pipeline", "repro_torch.parallel.steps", "repro_torch.fabric.ocs",
+        "repro_torch.core.spectra", "repro_torch.core.matching", "repro_torch.api.pipeline",
     ):
         assert name in probe["modules"]
 
@@ -85,3 +108,7 @@ def test_default_device_raises_without_cuda(probe):
     assert "device='cpu'" in probe["raised"]
     assert probe["model_raised"], "build_model with no device ran on the CPU"
     assert "device='cpu'" in probe["model_raised"]
+    assert probe["train_raised"], "the training launcher with no --device ran on the CPU"
+    assert "device='cpu'" in probe["train_raised"]
+    assert probe["trainer_raised"], "Trainer with no device ran on the CPU"
+    assert "device='cpu'" in probe["trainer_raised"]

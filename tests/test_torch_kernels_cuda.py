@@ -126,3 +126,104 @@ def test_ssd_chunk_kernel_equals_plain(cuda, dtype, BH, S, N, P):
         y_ref, h_ref = ssd_ref(xd, loga, B, C)
         torch.testing.assert_close(y.float(), y_ref.float(), rtol=0, atol=_ATOL[dtype])
         torch.testing.assert_close(hT, h_ref, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Gradients through the kernel-backed ops: the forward launches the kernel,
+# the backward recomputes through the plain version, so the gradients equal
+# the plain versions' own (float32, to 1e-4 of each gradient's largest entry:
+# the forward's sum order differs, the backward's does not).
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import mha  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunked  # noqa: E402
+
+
+def _grads(fn, inputs, seeds):
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    return torch.autograd.grad(out, leaves, seeds)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 32), (False, None)])
+def test_mha_gradients_equal_plain(cuda, causal, window):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda) for s in ((2, 4, 128, 64), (2, 2, 128, 64), (2, 2, 128, 64)))
+    g = torch.randn((2, 4, 128, 64), generator=gen, device=cuda)
+    before = flash_attention.launches
+    got = _grads(lambda *a: mha(*a, causal=causal, window=window), (q, k, v), (g,))
+    assert flash_attention.launches == before + 1
+    want = _grads(lambda *a: mha_ref(*a, causal=causal, window=window), (q, k, v), (g,))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("BH,S,N,P", [(4, 256, 64, 64), (2, 96, 16, 32)])
+def test_ssd_scan_gradients_equal_plain(cuda, BH, S, N, P):
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    xd = torch.randn((BH, S, P), generator=gen, device=cuda)
+    loga = -0.5 * torch.rand((BH, S), generator=gen, device=cuda)
+    B, C = ((torch.randn((BH, S, N), generator=gen, device=cuda) / N ** 0.5) for _ in range(2))
+    h0 = torch.randn((BH, N, P), generator=gen, device=cuda)
+    seeds = (torch.randn((BH, S, P), generator=gen, device=cuda), torch.randn((BH, N, P), generator=gen, device=cuda))
+    before = ssd_chunk.launches
+    got = _grads(ssd_scan, (xd, loga, B, C, h0), seeds)
+    assert ssd_chunk.launches == before + 1
+    for fn in (ssd_chunked, ssd_ref):
+        want = _grads(fn, (xd, loga, B, C, h0), seeds)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# demand_accum: float atomics sum in an order that changes from run to run,
+# so the kernel is held to a float64 sum of the same events, within 1e-5 of
+# each cell's mass Σ|w| (plus 1e-30 for empty cells), and to the plain
+# version within twice that (each of the two is within 1e-5 of the exact sum).
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.demand_accum import demand_accum, demand_accum_ref, in_range  # noqa: E402
+
+
+def _exact(src, dst, w, n):
+    keep = in_range(src, dst, n)
+    out = torch.zeros((n, n), dtype=torch.float64, device=src.device)
+    mass = torch.zeros_like(out)
+    idx = (src[keep].long(), dst[keep].long())
+    out.index_put_(idx, w[keep].double(), accumulate=True)
+    mass.index_put_(idx, w[keep].double().abs(), accumulate=True)
+    return out, mass
+
+
+@pytest.mark.parametrize("T,n,kind", [
+    (1 << 20, 64, "uniform"), (1 << 18, 512, "uniform"), (1000, 64, "uniform"), (1, 4, "uniform"),
+    (1 << 16, 64, "one cell"), (5000, 130, "out of range"), (3000, 300, "out of range"),
+])
+@pytest.mark.parametrize("itype", [torch.int32, torch.int64])
+def test_demand_accum_kernel_equals_plain(cuda, T, n, kind, itype):
+    gen = torch.Generator(device=cuda).manual_seed(T + n)
+    if kind == "one cell":
+        src = dst = torch.full((T,), n // 3, dtype=itype, device=cuda)
+    else:
+        lo, hi = (-3, n + 3) if kind == "out of range" else (0, n)
+        src, dst = (torch.randint(lo, hi, (T,), generator=gen, device=cuda, dtype=itype) for _ in range(2))
+    w = torch.rand((T,), generator=gen, device=cuda) - (0.3 if kind == "out of range" else 0.0)
+    before = demand_accum.launches
+    got = demand_accum(src, dst, w, n=n)
+    torch.cuda.synchronize()
+    assert demand_accum.launches == before + 1
+    exact, mass = _exact(src, dst, w, n)
+    assert bool(((got.double() - exact).abs() <= 1e-5 * mass + 1e-30).all())
+    plain = demand_accum_ref(src, dst, w, n)
+    assert bool(((got.double() - plain.double()).abs() <= 2e-5 * mass + 1e-30).all())
+
+
+def test_demand_accum_kernel_low_precision_weights(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    src, dst = (torch.randint(0, 64, (4096,), generator=gen, device=cuda) for _ in range(2))
+    w = torch.rand((4096,), generator=gen, device=cuda).to(torch.bfloat16)
+    exact, mass = _exact(src, dst, w.float(), 64)
+    assert bool(((demand_accum(src, dst, w, n=64).double() - exact).abs() <= 1e-5 * mass + 1e-30).all())
+    e = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    assert not demand_accum(e, e, torch.zeros((0,), device=cuda), n=8).any()

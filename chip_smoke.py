@@ -4,9 +4,12 @@
 
 1. Builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and holds each one against its plain PyTorch
-   version on the card: the auction kernels exactly, ``flash_attention`` and
-   ``ssd_chunk`` to stated tolerances in float32 and bfloat16 (at the
-   forward's and the training's shapes), ``demand_accum`` against a float64
+   version on the card: the auction kernels exactly (``auction_rounds``, a
+   whole matcher call in one launch, on the solver workloads' weights and on
+   tie-rich ones, forward and forward-reverse, with the round budget cut
+   too), ``flash_attention`` (bfloat16 on the tensor cores, float32 on the
+   CUDA cores) and ``ssd_chunk`` to stated tolerances (at the forward's and
+   the training's shapes), ``demand_accum`` against a float64
    sum and its plain version within 1e-5 / 2e-5 of each cell's mass (float
    atomics change the sum's order from run to run). It times kernel, plain
    version and, where one exists, a single PyTorch call computing the same
@@ -17,7 +20,9 @@
    then one timed run of each bucket with the kernels' launch counters set
    to 0 just before it. Every report must validate (Eq. 3 at 1e-4),
    converge, respect its §IV lower bound and finish EQUALIZE on the device;
-   the gpt bucket must also agree with the port's plain CPU path to 1e-4.
+   gpt, moe and benchmark must launch ``auction_rounds`` and no
+   ``masked_row_top2`` (no round-by-round loop); the gpt bucket must also
+   agree with the port's plain CPU path to 1e-4.
 3. Holds zamba2-1.2b at full width and 7 layers (one group and the
    remainder) in float32 against the port's plain CPU path, with the same
    weights (through ``interop.params_from_reference``).
@@ -182,6 +187,70 @@ def phase_bid(rng) -> dict:
     return dict(max_abs_err=max_err, shapes=shapes)
 
 
+def phase_rounds(rng) -> dict:
+    """auction_rounds against auction_rounds_ref, bit for bit in row2col,
+    col2row, prices, rounds and bids: (B, n) in (8, 32), (8, 64), (8, 100),
+    (4, 128) on the bonus weights of the gpt, moe and benchmark workloads
+    and on tie-rich integer weights, forward and forward-reverse, with the
+    full round budget and with it cut to 5. Then one matcher call's times at
+    the moe bucket's shape."""
+    from repro_torch.core.torchopt.matching import (_eps_schedule, default_max_iters, default_num_phases,
+                                                    match_auction_fr)
+    from repro_torch.kernels.auction_bid import auction_rounds, auction_rounds_ref
+    from repro_torch.traffic import benchmark_workload, gpt3b_workload, moe_workload
+
+    dev = "cuda"
+    makers = {"gpt": lambda n, r: gpt3b_workload(rng=r), "moe": lambda n, r: moe_workload(n=n, rng=r),
+              "benchmark": lambda n, r: benchmark_workload(n=n, rng=r)}
+    max_err, cases, timed = 0.0, 0, None
+    for B, n in [(8, 32), (8, 64), (8, 100), (4, 128)]:
+        for kind in ("gpt", "moe", "benchmark", "ties"):
+            if kind == "gpt" and n != 32:
+                continue  # the GPT-3B trace is 32 racks wide
+            if kind == "ties":
+                W = torch.from_numpy(rng.integers(0, 3, (B, n, n)).astype(np.float32)).to(dev)
+            else:
+                D = np.stack([makers[kind](n, np.random.default_rng(int(rng.integers(1 << 31)))) for _ in range(B)])
+                W = bonus_weights(torch.from_numpy(D.astype(np.float32)).to(dev))
+            eps = _eps_schedule(W, default_num_phases(n)).contiguous()
+            for reverse in (False, True):
+                for mi in (default_max_iters(n), 5):
+                    got = auction_rounds(W, eps, mi, reverse=reverse)
+                    torch.cuda.synchronize()
+                    want = auction_rounds_ref(W, eps, mi, reverse=reverse)
+                    for name, g, w in zip(("row2col", "col2row", "prices", "rounds", "bids"), got, want):
+                        check(torch.equal(g, w), f"auction_rounds {name} {kind} B={B} n={n} reverse={reverse} "
+                                                 f"max_iters={mi} differs from its plain version")
+                    max_err = max(max_err, float((got[2] - want[2]).abs().max()))
+                    cases += 1
+            if (kind, n) == ("moe", 64):
+                mi = default_max_iters(n)
+                ms = cuda_ms(lambda: auction_rounds(W, eps, mi, reverse=True), 10)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, _, _, rounds, bids = auction_rounds_ref(W, eps, mi, reverse=True)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                res = match_auction_fr(W)
+                torch.cuda.synchronize()
+                call_ms = (time.perf_counter() - t0) * 1e3
+                check(torch.equal(res.rounds, rounds), "match_auction_fr rounds differ from the plain version's")
+                P = eps.shape[1]
+                nbytes = 4.0 * (B * n * n + B * P + 3 * B * n + B) + 8.0 * B
+                b_ms, b_by = bound(nbytes, 2.0 * n * float(bids.sum()))
+                timed = dict(shape=[B, n, n], reverse=True, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                             bound_by=b_by, matcher_call_ms=call_ms, rounds=rounds.tolist(), bids=bids.tolist())
+                print(f"auction_rounds moe B={B} n={n} forward-reverse: kernel {ms:.3f} ms "
+                      f"({ms * 1e3 / int(rounds.max()):.3f} us a round of the longest lane), plain {plain_ms:.1f} ms, "
+                      f"match_auction_fr call {call_ms:.3f} ms, bound {b_ms * 1e3:.3f} us ({b_by}); "
+                      f"rounds {rounds.tolist()}")
+    print(f"auction_rounds: kernel == plain version exactly in {cases} cases: (B, n) in (8,32) (8,64) (8,100) (4,128), "
+          f"gpt/moe/benchmark bonus weights and tie-rich, forward and forward-reverse, max_iters full and 5")
+    timed["max_abs_err"] = max_err
+    return timed
+
+
 def phase_fused(rng) -> dict:
     from repro_torch.core.torchopt.matching import _eps_schedule, default_max_iters, default_num_phases
     from repro_torch.kernels.auction_fused import fused_auction, fused_auction_ref
@@ -230,9 +299,10 @@ def attended_pairs(Sq: int, Sk: int, causal: bool, window: int | None) -> int:
 
 
 def phase_flash(rng) -> dict:
-    """flash_attention against mha_ref: float32 to accumulation order (atol
-    1e-4), bfloat16 to the output's rounding (|Δ| ≤ 1e-2 + 1e-2·|ref|, about
-    two bf16 ulps of the output)."""
+    """flash_attention against mha_ref: float32 (the CUDA-core kernel) to
+    accumulation order (atol 1e-4), bfloat16 (the tensor-core kernel, P
+    rounded to bf16 for the second product) to the output's rounding
+    (|Δ| ≤ 1e-2 + 1e-2·|ref|, about two bf16 ulps of the output)."""
     from repro_torch.kernels.flash_attention import flash_attention, mha_ref
 
     tol = {torch.float32: dict(rtol=0.0, atol=1e-4), torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
@@ -243,6 +313,7 @@ def phase_flash(rng) -> dict:
         (1, 4, 4, 1024, 1024, 64, True, 64),       # sliding window
         (1, 8, 2, 256, 1024, 64, True, None),      # Sq < Sk
         (1, 4, 2, 77, 77, 32, False, None),        # ragged tiles, no mask
+        (1, 6, 2, 1000, 1300, 128, True, 200),     # ragged, GQA 3:1, window, Sq < Sk
     ]
     max_err, timed = 0.0, None
     for B, Hq, Hkv, Sq, Sk, D, causal, window in cases:
@@ -727,21 +798,21 @@ def buckets(seed: int):
 
 def phase_main_path(seed: int) -> dict:
     from repro_torch.api import SolveOptions, solve_many
-    from repro_torch.kernels.auction_bid import masked_row_top2
+    from repro_torch.kernels.auction_bid import auction_rounds, masked_row_top2
     from repro_torch.kernels.auction_fused import fused_auction
 
-    launches = {"auction_bid": 0, "auction_fused": 0}
+    launches = {"auction_bid": 0, "auction_rounds": 0, "auction_fused": 0}
     for i, (name, matcher, Ds) in enumerate(buckets(seed)):
         if i == 0:
             solve_many(Ds, 4, 0.01, solver="spectra_torch")  # warm-up (first use of every piece)
-        masked_row_top2.launches = 0
-        fused_auction.launches = 0
+        masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reports = solve_many(Ds, 4, 0.01, solver="spectra_torch")
         wall_ms = (time.perf_counter() - t0) * 1e3
-        bid, fused = masked_row_top2.launches, fused_auction.launches
+        bid, rounds_l, fused = masked_row_top2.launches, auction_rounds.launches, fused_auction.launches
         launches["auction_bid"] += bid
+        launches["auction_rounds"] += rounds_l
         launches["auction_fused"] += fused
         for b, rep in enumerate(reports):
             check(rep.validated, f"{name}[{b}] not validated")
@@ -750,20 +821,26 @@ def phase_main_path(seed: int) -> dict:
             check(not rep.extras["eq_exhausted"], f"{name}[{b}] EQUALIZE ran out of slots")
             check(np.isfinite(rep.makespan) and rep.makespan >= rep.lower_bound * (1 - 1e-6),
                   f"{name}[{b}] makespan {rep.makespan} below its lower bound {rep.lower_bound}")
+        got = (bid, rounds_l, fused)
         if matcher == "auction_fused":
-            check(fused > 0 and bid == 0, f"{name}: expected auction_fused launches only, got bid={bid} fused={fused}")
+            check(fused > 0 and bid == 0 and rounds_l == 0, f"{name}: expected auction_fused launches only, got "
+                                                            f"bid/rounds/fused {got}")
         else:
-            check(bid > 0 and fused == 0, f"{name}: expected auction_bid launches only, got bid={bid} fused={fused}")
+            check(rounds_l > 0 and bid == 0 and fused == 0, f"{name}: expected auction_rounds launches only, got "
+                                                            f"bid/rounds/fused {got}")
         rounds = sum(r.extras["bidding_rounds"] for r in reports)
         ratio = float(np.mean([r.makespan / r.lower_bound for r in reports]))
         print(f"bucket {name} B={len(Ds)} n={Ds.shape[-1]} matcher={matcher}: wall {wall_ms:.1f} ms, "
-              f"bidding rounds {rounds}, launches bid={bid} fused={fused}, mean makespan/LB {ratio:.4f}")
+              f"bidding rounds {rounds}, launches bid={bid} rounds={rounds_l} fused={fused}, mean makespan/LB "
+              f"{ratio:.4f}")
         if name == "gpt":
             cpu = solve_many(Ds, 4, 0.01, solver="spectra_torch", options=SolveOptions(extra={"device": "cpu"}))
             rel = [abs(g.makespan - c.makespan) / c.makespan for g, c in zip(reports, cpu)]
             check(max(rel) <= 1e-4, f"gpt: GPU makespans differ from the plain CPU path by {rel}")
+            exact = all(g.makespan == c.makespan for g, c in zip(reports, cpu))
             print(f"bucket gpt: GPU makespans agree with the plain CPU path (max relative difference {max(rel):.3g}, "
-                  f"bidding rounds {rounds} on the GPU, {sum(r.extras['bidding_rounds'] for r in cpu)} on the CPU)")
+                  f"all equal: {exact}; bidding rounds {rounds} on the GPU, "
+                  f"{sum(r.extras['bidding_rounds'] for r in cpu)} on the CPU)")
     return launches
 
 
@@ -794,6 +871,7 @@ def main() -> None:
 
     rng = np.random.default_rng(args.seed)
     bid = phase_bid(rng)
+    rounds = phase_rounds(rng)
     fused = phase_fused(rng)
     flash = phase_flash(rng)
     ssd = phase_ssd(rng)
@@ -802,7 +880,8 @@ def main() -> None:
     t0 = time.perf_counter()
     launches = phase_main_path(args.seed)
     print(f"solver path: {time.perf_counter() - t0:.1f} s")
-    check(launches["auction_bid"] > 0 and launches["auction_fused"] > 0, f"main path launches {launches}")
+    check(launches["auction_rounds"] > 0 and launches["auction_fused"] > 0 and launches["auction_bid"] == 0,
+          f"main path launches {launches}")
     t0 = time.perf_counter()
     phase_model_parity(args.seed)
     launches.update(phase_zamba2(args.seed))
@@ -813,13 +892,19 @@ def main() -> None:
     print(f"training phases: {time.perf_counter() - t0:.1f} s")
     launches["demand_accum"] = demand_accum.launches
 
-    bid_main = bid["shapes"][1]  # (8, 64): the moe bucket, the most bid launches
+    bid_main = bid["shapes"][1]  # (8, 64): the moe bucket's shape
     kernels = [
         dict(name="auction_bid", route="cuda", source="src/repro_torch/csrc/auction_bid.cu",
              replaces="src/repro/kernels/auction_bid/kernel.py:22", launches=launches["auction_bid"],
              max_abs_err=bid["max_abs_err"], ms=bid_main["ms"], plain_ms=bid_main["plain_ms"],
              bound_ms=bid_main["bound_ms"], bound_by=bid_main["bound_by"], library_ms=bid_main["library_ms"],
              shape=bid_main["shape"], shapes=bid["shapes"]),
+        dict(name="auction_rounds", route="cuda", source="src/repro_torch/csrc/auction_rounds.cu",
+             replaces="src/repro/kernels/auction_bid/kernel.py:22", launches=launches["auction_rounds"],
+             max_abs_err=rounds["max_abs_err"], ms=rounds["ms"], plain_ms=rounds["plain_ms"],
+             bound_ms=rounds["bound_ms"], bound_by=rounds["bound_by"], library_ms=None,
+             shape=rounds["shape"], rounds=rounds["rounds"], bids=rounds["bids"],
+             matcher_call_ms=rounds["matcher_call_ms"]),
         dict(name="auction_fused", route="cuda", source="src/repro_torch/csrc/auction_fused.cu",
              replaces="src/repro/kernels/auction_fused/kernel.py:55", launches=launches["auction_fused"],
              max_abs_err=fused["max_abs_err"], ms=fused["ms"], plain_ms=fused["plain_ms"],

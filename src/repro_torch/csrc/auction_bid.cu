@@ -23,21 +23,13 @@
 #include <climits>
 #include <math_constants.h>
 
+#include "auction_common.cuh"
+
 namespace {
 
-constexpr float kNeg = -1e30f;
+using auction::kNeg;
+using auction::merge;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ void merge(float& v1, float& v2, int& j1,
-                                      float bv1, float bv2, int bj1) {
-  if (bv1 > v1 || (bv1 == v1 && bj1 < j1)) {
-    v2 = fmaxf(bv2, v1);
-    v1 = bv1;
-    j1 = bj1;
-  } else {
-    v2 = fmaxf(v2, bv1);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 auction_bid_kernel(const float* __restrict__ W, const float* __restrict__ prices,

@@ -36,33 +36,18 @@
 #include <climits>
 #include <math_constants.h>
 
+#include "auction_common.cuh"
+
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr float kNegHalf = kNeg / 2;
+using auction::kNeg;
+using auction::kNegHalf;
+using auction::merge;
+using auction::order_code;
+using auction::order_decode;
+
 constexpr int kThreads = 1024;
 constexpr int kSmemPerColumn = 7 * 4;
-
-// Monotone map float -> unsigned: a < b  iff  code(a) < code(b).
-__device__ __forceinline__ unsigned order_code(float f) {
-  const unsigned u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float order_decode(unsigned c) {
-  return __uint_as_float((c & 0x80000000u) ? (c & 0x7fffffffu) : ~c);
-}
-
-__device__ __forceinline__ void merge(float& v1, float& v2, int& j1,
-                                      float bv1, float bv2, int bj1) {
-  if (bv1 > v1 || (bv1 == v1 && bj1 < j1)) {
-    v2 = fmaxf(bv2, v1);
-    v1 = bv1;
-    j1 = bj1;
-  } else {
-    v2 = fmaxf(v2, bv1);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 auction_fused_kernel(const float* __restrict__ W, const float* __restrict__ prices0,

@@ -6,11 +6,12 @@ resolves its device with :func:`resolve_device` (``None`` means CUDA, and a
 missing GPU raises); each kernel wrapper then launches its CUDA kernel for a
 CUDA tensor and uses its plain PyTorch version for a CPU tensor.
 
-The kernels live in ``repro_torch/csrc/*.cu`` and are built at first use with
-``nvcc`` by hand into one shared library with a plain C interface, loaded
-with ``ctypes``. The library is cached under ``build/repro_torch/`` at the
-repository root, named by a hash of the sources' contents, so an edited
-source rebuilds and an unchanged one loads at once.
+The kernels live in ``repro_torch/csrc/*.cu`` (with shared headers
+``*.cuh``) and are built at first use with ``nvcc`` by hand into one shared
+library with a plain C interface, loaded with ``ctypes``. The library is
+cached under ``build/repro_torch/`` at the repository root, named by a hash
+of the sources', the headers' and the flags' contents, so an edited source,
+header or flag rebuilds and an unchanged tree loads at once.
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # W, prices, v1, v2, j1, B, n, m, stream
     "auction_bid_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # W, eps, r2c, c2r, prices, rounds, bids, B, n, P, max_iters, reverse, stream
+    "auction_rounds_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # W, prices0, eps, r2c, c2r, prices, rounds, bids, B, n, P, max_iters, stream
     "auction_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, o, BH, group, Sq, Sk, D, scale, causal, window, dtype, stream
@@ -72,7 +75,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 
 def _sources() -> list[Path]:
+    """The translation units: one object each."""
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _inputs() -> list[Path]:
+    """Everything a build reads from ``csrc``: sources and headers."""
+    return sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")])
 
 
 def _nvcc() -> str:
@@ -88,8 +97,8 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
-    digest = hashlib.sha256()
-    for src in _sources():
+    digest = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for src in _inputs():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:16]}.so"

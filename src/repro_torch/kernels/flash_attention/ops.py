@@ -2,7 +2,8 @@
 
 ``flash_attention`` wraps ``csrc/flash_attention.cu`` (the counterpart of
 ``repro.kernels.flash_attention.kernel.flash_attention_pallas``): a CUDA
-tensor launches the kernel, a CPU tensor takes the plain ``mha_ref``.
+tensor launches the kernel (bfloat16 on the tensor cores, wgmma fed by TMA;
+float32 on the CUDA cores), a CPU tensor takes the plain ``mha_ref``.
 ``flash_attention.launches`` counts kernel launches.
 
 ``mha`` is what the model calls: a ``torch.autograd.Function`` whose forward
@@ -61,6 +62,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         raise ValueError(f"flash_attention takes head_dim in {HEAD_DIMS}, got {D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k, v")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention needs 16-byte aligned bfloat16 q, k, v (the TMA reads them)")
     o = torch.empty_like(q)
     if q.numel():
         backend.launch(

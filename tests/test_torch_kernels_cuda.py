@@ -5,8 +5,10 @@ Marked ``requires_cuda``: they skip without a CUDA device. On the GPU host
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m requires_cuda
 
-The auction kernels must equal their plain versions exactly, on inputs full
-of ties; flash_attention and ssd_chunk hold to the tolerances stated below.
+The auction kernels (``masked_row_top2``, ``auction_rounds``,
+``fused_auction``) must equal their plain versions exactly, on inputs full
+of ties; flash_attention (bfloat16 on the tensor cores, float32 on the CUDA
+cores) and ssd_chunk hold to the tolerances stated below.
 """
 
 import numpy as np
@@ -14,8 +16,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.torchopt.matching import default_max_iters  # noqa: E402
-from repro_torch.kernels.auction_bid import masked_row_top2, masked_row_top2_ref  # noqa: E402
+from repro_torch.core.torchopt.matching import _eps_schedule, default_max_iters, default_num_phases  # noqa: E402
+from repro_torch.kernels.auction_bid import (  # noqa: E402
+    auction_rounds,
+    auction_rounds_ref,
+    masked_row_top2,
+    masked_row_top2_ref,
+)
 from repro_torch.kernels.auction_fused import fused_auction, fused_auction_ref  # noqa: E402
 
 pytestmark = pytest.mark.requires_cuda
@@ -59,6 +66,25 @@ def test_bid_kernel_rejects_strided_input(cuda):
         masked_row_top2(W.transpose(1, 2), torch.zeros((2, 8), device=cuda))
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 100, 128])
+def test_rounds_kernel_equals_plain(cuda, n, reverse):
+    """Every phase and round in one launch, bit for bit: DECOMPOSE-like
+    weights and a tie-rich integer lane, the full round budget and one cut
+    to 5 rounds a phase."""
+    rng = np.random.default_rng(n)
+    W = torch.from_numpy(np.stack([_bonus_weights(rng, n), _bonus_weights(rng, n, k=3),
+                                   rng.integers(0, 3, (n, n)).astype(np.float32)])).to(cuda)
+    eps = _eps_schedule(W, default_num_phases(n)).contiguous()
+    for max_iters in (default_max_iters(n), 5):
+        before = auction_rounds.launches
+        got = auction_rounds(W, eps, max_iters, reverse=reverse)
+        torch.cuda.synchronize()
+        assert auction_rounds.launches == before + 1
+        for g, w in zip(got, auction_rounds_ref(W, eps, max_iters, reverse=reverse)):
+            assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("B,n", [(4, 100), (2, 256), (1, 1024)])
 def test_fused_kernel_equals_plain(cuda, B, n):
     rng = np.random.default_rng(n)
@@ -92,6 +118,11 @@ _ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     (1, 4, 4, 300, 300, 32, True, 64),      # sliding window
     (1, 4, 2, 100, 300, 64, True, None),    # Sq < Sk
     (1, 2, 1, 77, 130, 64, False, None),    # no mask
+    (1, 6, 2, 333, 333, 64, True, None),    # Sq a multiple of neither query tile
+    (1, 4, 4, 256, 250, 64, False, None),   # Sk not a multiple of the key tile
+    (1, 4, 2, 100, 357, 32, True, 50),      # D = 32, window, Sq < Sk
+    (1, 8, 4, 400, 401, 128, True, None),   # D = 128, GQA, Sq < Sk
+    (2, 4, 1, 1000, 1000, 64, True, 128),   # GQA 4:1, window across key tiles
 ])
 def test_flash_kernel_equals_plain(cuda, dtype, B, Hq, Hkv, Sq, Sk, D, causal, window):
     gen = torch.Generator(device=cuda).manual_seed(Sq)

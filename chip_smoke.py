@@ -7,9 +7,12 @@
    version on the card: the auction kernels exactly (``auction_rounds``, a
    whole matcher call in one launch, on the solver workloads' weights and on
    tie-rich ones, forward and forward-reverse, with the round budget cut
-   too), ``flash_attention`` (bfloat16 on the tensor cores, float32 on the
-   CUDA cores) and ``ssd_chunk`` to stated tolerances (at the forward's and
-   the training's shapes), ``demand_accum`` against a float64
+   too; ``auction_fused``, the thread block cluster kernel at n ≤ 645 and
+   the one-block kernel above, both at n = 512), ``flash_attention``
+   (bfloat16 on the tensor cores, float32 on the CUDA cores) and
+   ``ssd_chunk`` (bfloat16 on the tensor cores, float32 on the CUDA cores)
+   to stated tolerances (at the forward's and the training's shapes),
+   ``demand_accum`` against a float64
    sum and its plain version within 1e-5 / 2e-5 of each cell's mass (float
    atomics change the sum's order from run to run). It times kernel, plain
    version and, where one exists, a single PyTorch call computing the same
@@ -21,8 +24,11 @@
    to 0 just before it. Every report must validate (Eq. 3 at 1e-4),
    converge, respect its §IV lower bound and finish EQUALIZE on the device;
    gpt, moe and benchmark must launch ``auction_rounds`` and no
-   ``masked_row_top2`` (no round-by-round loop); the gpt bucket must also
-   agree with the port's plain CPU path to 1e-4.
+   ``masked_row_top2`` (no round-by-round loop), permutations only the
+   cluster ``auction_fused`` kernel; the gpt bucket must also agree with the
+   port's plain CPU path to 1e-4. One more run of the permutations bucket
+   times every ``auction_fused`` call with CUDA events, splitting the
+   bucket's wall into the kernel and the rest.
 3. Holds zamba2-1.2b at full width and 7 layers (one group and the
    remainder) in float32 against the port's plain CPU path, with the same
    weights (through ``interop.params_from_reference``).
@@ -252,19 +258,29 @@ def phase_rounds(rng) -> dict:
 
 
 def phase_fused(rng) -> dict:
+    """auction_fused against fused_auction_ref, bit for bit in r2c, c2r,
+    prices, rounds and bids, on permutations + M-bonus weights at (B, n) in
+    (4, 100), (4, 256), (4, 512) and (1, 1024), each on the kernel the wrapper
+    picks for n (the cluster kernel up to n = 645, the one-block kernel
+    above), and the one-block kernel at n = 512 too. The n = 512 call is timed
+    on both kernels (CUDA events around eager calls), with µs a round of the
+    longest lane: a round is a chain of dependent steps, so rounds × a round's
+    latency, not the bytes or the flops, bounds the kernel."""
     from repro_torch.core.torchopt.matching import _eps_schedule, default_max_iters, default_num_phases
     from repro_torch.kernels.auction_fused import fused_auction, fused_auction_ref
+    from repro_torch.kernels.auction_fused.ops import fused_kernel_for
     from repro_torch.traffic import permutations_workload
 
     dev = "cuda"
     max_err = 0.0
-    timed = None
+    timed, served = None, {}
     for B, n in [(4, 100), (4, 256), (4, 512), (1, 1024)]:
         D = np.stack([permutations_workload(n=n, k=16, rng=rng) for _ in range(B)])
         W = bonus_weights(torch.from_numpy(D.astype(np.float32)).to(dev))
         eps = _eps_schedule(W, default_num_phases(n)).contiguous()
         p0 = torch.zeros((B, n), device=dev)
         mi = default_max_iters(n)
+        kernel = served[n] = fused_kernel_for(n)
         got = fused_auction(W, p0, eps, max_iters=mi)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -272,18 +288,29 @@ def phase_fused(rng) -> dict:
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
         for name, g, w in zip(("r2c", "c2r", "prices", "rounds", "bids"), got, want):
-            check(torch.equal(g, w), f"auction_fused {name} B={B} n={n} differs from its plain version")
+            check(torch.equal(g, w), f"auction_fused ({kernel} kernel) {name} B={B} n={n} differs from its plain version")
         max_err = max(max_err, float((got[2] - want[2]).abs().max()))
-        print(f"auction_fused B={B} n={n}: kernel == plain version exactly (rounds {got[3].tolist()})")
+        print(f"auction_fused B={B} n={n}, {kernel} kernel: kernel == plain version exactly (rounds {got[3].tolist()})")
         if n == 512:
-            ms = graph_ms(lambda: fused_auction(W, p0, eps, max_iters=mi), 3, replays=2)
+            block = fused_auction(W, p0, eps, max_iters=mi, kernel="block")
+            for name, g, w in zip(("r2c", "c2r", "prices", "rounds", "bids"), block, want):
+                check(torch.equal(g, w), f"auction_fused (block kernel) {name} B={B} n={n} differs from its plain version")
+            print(f"auction_fused B={B} n={n}, block kernel: kernel == plain version exactly")
+            ms = cuda_ms(lambda: fused_auction(W, p0, eps, max_iters=mi), 5, warmup=1)
+            block_ms = cuda_ms(lambda: fused_auction(W, p0, eps, max_iters=mi, kernel="block"), 5, warmup=1)
+            longest = int(got[3].max())
             P = eps.shape[1]
             nbytes = 4.0 * (B * n * n + B * n + B * P + 3 * B * n + B) + 8.0 * B
             b_ms, b_by = bound(nbytes, 2.0 * n * float(got[4].sum()))
-            timed = dict(shape=[B, n, n], ms=ms, plain_ms=plain_s * 1e3, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                         rounds=got[3].tolist(), bids=got[4].tolist())
-            print(f"auction_fused B={B} n={n}: kernel {ms:.3f} ms, plain {plain_s * 1e3:.1f} ms, bound {b_ms * 1e3:.3f} us ({b_by})")
+            timed = dict(shape=[B, n, n], kernel=kernel, ms=ms, us_per_round=ms * 1e3 / longest, block_ms=block_ms,
+                         block_us_per_round=block_ms * 1e3 / longest, plain_ms=plain_s * 1e3, library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by, rounds=got[3].tolist(), bids=got[4].tolist())
+            print(f"auction_fused B={B} n={n}: {kernel} kernel {ms:.3f} ms ({ms * 1e3 / longest:.3f} us a round of "
+                  f"the longest lane, {longest} rounds), block kernel {block_ms:.3f} ms "
+                  f"({block_ms * 1e3 / longest:.3f} us a round), plain {plain_s * 1e3:.1f} ms, "
+                  f"bound {b_ms * 1e3:.3f} us ({b_by})")
     timed["max_abs_err"] = max_err
+    timed["kernel_by_n"] = served
     return timed
 
 
@@ -346,8 +373,11 @@ def phase_flash(rng) -> dict:
 
 
 def phase_ssd(rng) -> dict:
-    """ssd_chunk against ssd_chunk_ref: both compute in float32 from the same
-    inputs, so rtol/atol 1e-4 covers the sum order in both types."""
+    """ssd_chunk against ssd_chunk_ref at rtol/atol 1e-4 in both types. The
+    float32 kernel sums in float32 on the CUDA cores (only the order differs);
+    the bfloat16 kernel multiplies on the tensor cores, with each float32
+    operand it forms (the decayed scores, B scaled by the decay to the
+    chunk's end) split into a bf16 high and low part, ≤ 2⁻¹⁷ relative."""
     from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref
     from repro_torch.kernels.ssd_scan.ops import _pick_chunk
 
@@ -796,24 +826,55 @@ def buckets(seed: int):
     ]
 
 
+def fused_split(Ds) -> tuple[float, float, int]:
+    """One more run of a bucket with CUDA events around every
+    ``auction_fused`` call the matcher makes: (wall ms, the calls' ms, calls)."""
+    import repro_torch.core.torchopt.matching as matching
+    from repro_torch.api import solve_many
+
+    real, events = matching.fused_auction, []
+
+    def timed(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    matching.fused_auction = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve_many(Ds, 4, 0.01, solver="spectra_torch")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        matching.fused_auction = real
+    return wall_ms, sum(s.elapsed_time(e) for s, e in events), len(events)
+
+
 def phase_main_path(seed: int) -> dict:
     from repro_torch.api import SolveOptions, solve_many
     from repro_torch.kernels.auction_bid import auction_rounds, masked_row_top2
     from repro_torch.kernels.auction_fused import fused_auction
 
-    launches = {"auction_bid": 0, "auction_rounds": 0, "auction_fused": 0}
+    launches = {"auction_bid": 0, "auction_rounds": 0, "auction_fused": 0, "auction_fused_cluster": 0}
     for i, (name, matcher, Ds) in enumerate(buckets(seed)):
         if i == 0:
             solve_many(Ds, 4, 0.01, solver="spectra_torch")  # warm-up (first use of every piece)
         masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = 0
+        fused_auction.cluster_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reports = solve_many(Ds, 4, 0.01, solver="spectra_torch")
         wall_ms = (time.perf_counter() - t0) * 1e3
         bid, rounds_l, fused = masked_row_top2.launches, auction_rounds.launches, fused_auction.launches
+        cluster = fused_auction.cluster_launches
         launches["auction_bid"] += bid
         launches["auction_rounds"] += rounds_l
         launches["auction_fused"] += fused
+        launches["auction_fused_cluster"] += cluster
         for b, rep in enumerate(reports):
             check(rep.validated, f"{name}[{b}] not validated")
             check(rep.extras["matcher"] == matcher, f"{name}[{b}] used {rep.extras['matcher']}, expected {matcher}")
@@ -823,16 +884,21 @@ def phase_main_path(seed: int) -> dict:
                   f"{name}[{b}] makespan {rep.makespan} below its lower bound {rep.lower_bound}")
         got = (bid, rounds_l, fused)
         if matcher == "auction_fused":
-            check(fused > 0 and bid == 0 and rounds_l == 0, f"{name}: expected auction_fused launches only, got "
-                                                            f"bid/rounds/fused {got}")
+            check(fused > 0 and cluster == fused and bid == 0 and rounds_l == 0,
+                  f"{name}: expected launches of the cluster auction_fused kernel only, got bid/rounds/fused "
+                  f"{got}, of which cluster {cluster}")
         else:
             check(rounds_l > 0 and bid == 0 and fused == 0, f"{name}: expected auction_rounds launches only, got "
                                                             f"bid/rounds/fused {got}")
         rounds = sum(r.extras["bidding_rounds"] for r in reports)
         ratio = float(np.mean([r.makespan / r.lower_bound for r in reports]))
         print(f"bucket {name} B={len(Ds)} n={Ds.shape[-1]} matcher={matcher}: wall {wall_ms:.1f} ms, "
-              f"bidding rounds {rounds}, launches bid={bid} rounds={rounds_l} fused={fused}, mean makespan/LB "
-              f"{ratio:.4f}")
+              f"bidding rounds {rounds}, launches bid={bid} rounds={rounds_l} fused={fused} (cluster kernel "
+              f"{cluster}), mean makespan/LB {ratio:.4f}")
+        if matcher == "auction_fused":
+            split_wall, split_fused, calls = fused_split(Ds)
+            print(f"bucket {name}, one more run split by CUDA events: wall {split_wall:.1f} ms, auction_fused "
+                  f"{split_fused:.1f} ms over {calls} calls, the rest {split_wall - split_fused:.1f} ms")
         if name == "gpt":
             cpu = solve_many(Ds, 4, 0.01, solver="spectra_torch", options=SolveOptions(extra={"device": "cpu"}))
             rel = [abs(g.makespan - c.makespan) / c.makespan for g, c in zip(reports, cpu)]
@@ -907,9 +973,12 @@ def main() -> None:
              matcher_call_ms=rounds["matcher_call_ms"]),
         dict(name="auction_fused", route="cuda", source="src/repro_torch/csrc/auction_fused.cu",
              replaces="src/repro/kernels/auction_fused/kernel.py:55", launches=launches["auction_fused"],
+             cluster_launches=launches["auction_fused_cluster"],
              max_abs_err=fused["max_abs_err"], ms=fused["ms"], plain_ms=fused["plain_ms"],
              bound_ms=fused["bound_ms"], bound_by=fused["bound_by"], library_ms=None,
-             shape=fused["shape"], rounds=fused["rounds"], bids=fused["bids"]),
+             shape=fused["shape"], kernel=fused["kernel"], us_per_round=fused["us_per_round"],
+             block_ms=fused["block_ms"], block_us_per_round=fused["block_us_per_round"],
+             kernel_by_n=fused["kernel_by_n"], rounds=fused["rounds"], bids=fused["bids"]),
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:29",
              launches=launches["flash_attention"] + train_launches["flash_attention"],

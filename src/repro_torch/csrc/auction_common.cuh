@@ -36,4 +36,20 @@ __device__ __forceinline__ float order_decode(unsigned c) {
   return __uint_as_float((c & 0x80000000u) ? (c & 0x7fffffffu) : ~c);
 }
 
+// A bid as one 64-bit word: the larger word is the larger bid, then the
+// lower bidder, so one atomicMax keeps a target's winning bid and its lowest
+// bidder exactly. 0 is "no bid" (no real bid packs to 0).
+__device__ __forceinline__ unsigned long long pack(float bid, int who) {
+  return (static_cast<unsigned long long>(order_code(bid)) << 32) |
+         (0xffffffffu - static_cast<unsigned>(who));
+}
+
+__device__ __forceinline__ float packed_bid(unsigned long long k) {
+  return order_decode(static_cast<unsigned>(k >> 32));
+}
+
+__device__ __forceinline__ int packed_who(unsigned long long k) {
+  return static_cast<int>(0xffffffffu - static_cast<unsigned>(k & 0xffffffffull));
+}
+
 }  // namespace auction

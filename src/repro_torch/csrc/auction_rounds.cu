@@ -54,17 +54,12 @@ namespace {
 using auction::kNeg;
 using auction::kNegHalf;
 using auction::merge;
-using auction::order_code;
-using auction::order_decode;
+using auction::pack;
+using auction::packed_bid;
+using auction::packed_who;
 
 constexpr int kThreads = 512;
 constexpr int kMaxN = 128;
-
-// Larger key: the larger bid, then the lower bidder. 0 is "no bid".
-__device__ __forceinline__ unsigned long long pack(float bid, int who) {
-  return (static_cast<unsigned long long>(order_code(bid)) << 32) |
-         (0xffffffffu - static_cast<unsigned>(who));
-}
 
 size_t smem_bytes(int n) {
   const int s = n | 1;
@@ -170,9 +165,9 @@ auction_rounds_kernel(const float* __restrict__ W, const float* __restrict__ eps
         const unsigned long long k = key[t];
         if (k == 0ull) continue;
         key[t] = 0ull;
-        const float best = order_decode(static_cast<unsigned>(k >> 32));
+        const float best = packed_bid(k);
         if (!(best > kNegHalf)) continue;
-        const int w = static_cast<int>(0xffffffffu - static_cast<unsigned>(k & 0xffffffffull));
+        const int w = packed_who(k);
         const int old = target_map[t];
         if (old >= 0) {
           bidder_map[old] = -1;

@@ -49,8 +49,8 @@ _SIGNATURES = {
     "auction_bid_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # W, eps, r2c, c2r, prices, rounds, bids, B, n, P, max_iters, reverse, stream
     "auction_rounds_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # W, prices0, eps, r2c, c2r, prices, rounds, bids, B, n, P, max_iters, stream
-    "auction_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # W, prices0, eps, r2c, c2r, prices, rounds, bids, B, n, P, max_iters, cluster, stream
+    "auction_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, BH, group, Sq, Sk, D, scale, causal, window, dtype, stream
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # xd, loga, B, C, y, states, gates, BH, S, L, N, P, dtype, stream

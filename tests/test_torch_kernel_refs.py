@@ -21,6 +21,7 @@ from repro.kernels.auction_fused.ref import fused_auction_ref as jax_fused_ref  
 from repro_torch.core.torchopt.matching import default_max_iters  # noqa: E402
 from repro_torch.kernels.auction_bid import masked_row_top2, masked_row_top2_ref  # noqa: E402
 from repro_torch.kernels.auction_fused import fused_auction, fused_auction_ref  # noqa: E402
+from repro_torch.kernels.auction_fused.ops import cluster_max_n, cluster_smem_bytes, fused_kernel_for  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -125,3 +126,41 @@ def test_fused_wrapper_rejects_bad_inputs():
         fused_auction(W, torch.zeros((1, 4)), torch.zeros((1, 0)), max_iters=10)
     with pytest.raises(ValueError):
         fused_auction(torch.zeros((1, 4, 5)), torch.zeros((1, 4)), torch.ones((1, 2)), max_iters=10)
+
+
+# ------------------------------------------------- which fused kernel serves n
+
+_MAX_N = {8: 645, 16: 893}  # the largest n whose rows of W fit a CTA's 227 KB
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("n", [1, 8, 100, 512, "max", "max+1"])
+def test_fused_kernel_choice_by_n(n, cluster):
+    """The cluster kernel serves n up to the largest whose share of W (R =
+    ⌈n / cluster⌉ rows) and column arrays fit one block's 227 KB of shared
+    memory; the one-block kernel serves every larger n."""
+    assert cluster_max_n(cluster) == _MAX_N[cluster]
+    n = {"max": _MAX_N[cluster], "max+1": _MAX_N[cluster] + 1}.get(n, n)
+    fits = cluster_smem_bytes(n, cluster) <= 232448
+    assert fits == (n <= _MAX_N[cluster])
+    assert fused_kernel_for(n, cluster) == ("cluster" if fits else "block")
+
+
+def test_fused_wrapper_kernel_choice_checks():
+    W = torch.zeros((1, 700, 700))
+    p0, eps = torch.zeros((1, 700)), torch.ones((1, 2))
+    with pytest.raises(ValueError):
+        fused_auction(W, p0, eps, max_iters=1, kernel="cluster")  # 700 > 645 at 8 CTAs
+    with pytest.raises(ValueError):
+        fused_auction(W, p0, eps, max_iters=1, kernel="warp")
+    with pytest.raises(ValueError):
+        fused_auction(W, p0, eps, max_iters=1, cluster=32)
+    assert fused_kernel_for(700, 16) == "cluster" and fused_kernel_for(1024, 16) == "block"
+    # On the CPU either choice is the plain version.
+    rng = np.random.default_rng(3)
+    Wt = torch.from_numpy(rng.random((2, 40, 40)).astype(np.float32))
+    p0, eps = torch.zeros((2, 40)), torch.full((2, 3), 0.01)
+    want = fused_auction_ref(Wt, p0, eps, max_iters=default_max_iters(40))
+    for kernel in ("cluster", "block"):
+        for g, w in zip(fused_auction(Wt, p0, eps, max_iters=default_max_iters(40), kernel=kernel), want):
+            assert torch.equal(g, w)

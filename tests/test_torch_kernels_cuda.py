@@ -85,17 +85,45 @@ def test_rounds_kernel_equals_plain(cuda, n, reverse):
             assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("B,n", [(4, 100), (2, 256), (1, 1024)])
-def test_fused_kernel_equals_plain(cuda, B, n):
+@pytest.mark.parametrize("B,n,kernel", [(4, 100, "cluster"), (2, 256, "cluster"), (4, 100, "block"),
+                                          (2, 256, "block"), (1, 1024, "block")])
+def test_fused_kernel_equals_plain(cuda, B, n, kernel):
     rng = np.random.default_rng(n)
     W = torch.from_numpy(np.stack([_bonus_weights(rng, n) for _ in range(B)])).to(cuda)
     eps = ((W.amax(dim=(1, 2)) / 2)[:, None] * (0.25 ** torch.arange(8, device=cuda))[None, :]).contiguous()
     p0 = torch.zeros((B, n), device=cuda)
-    before = fused_auction.launches
-    got = fused_auction(W, p0, eps, max_iters=default_max_iters(n))
+    before, before_cluster = fused_auction.launches, fused_auction.cluster_launches
+    got = fused_auction(W, p0, eps, max_iters=default_max_iters(n), kernel=kernel)
     torch.cuda.synchronize()
     assert fused_auction.launches == before + 1
+    assert fused_auction.cluster_launches == before_cluster + (kernel == "cluster")
     for g, w in zip(got, fused_auction_ref(W, p0, eps, max_iters=default_max_iters(n))):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("budget", ["full", "warm prices", "max_iters 5"])
+@pytest.mark.parametrize("cluster,n", [(8, 129), (8, 500), (8, 512), (8, 645), (16, 500), (16, 893)])
+def test_fused_cluster_kernel_equals_plain(cuda, cluster, n, budget):
+    """The cluster kernel at ragged n (R = ⌈n / cluster⌉ rows a CTA, a short
+    last CTA), at n = 512 and at the largest n it serves, bit for bit: from
+    zero prices, from warm prices (as DECOMPOSE's carry would give), and with
+    the round budget cut to 5 a phase."""
+    from repro_torch.kernels.auction_fused.ops import cluster_max_n
+
+    assert n <= cluster_max_n(cluster)
+    rng = np.random.default_rng(n + cluster)
+    B = 2
+    W = torch.from_numpy(np.stack([_bonus_weights(rng, n, k=16) for _ in range(B)])).to(cuda)
+    eps = _eps_schedule(W, default_num_phases(n)).contiguous()
+    p0 = torch.zeros((B, n), device=cuda)
+    if budget == "warm prices":
+        p0 = (torch.from_numpy(rng.random((B, n)).astype(np.float32)).to(cuda) * W.amax(dim=(1, 2))[:, None] / 8).contiguous()
+    mi = 5 if budget == "max_iters 5" else default_max_iters(n)
+    before = fused_auction.cluster_launches
+    got = fused_auction(W, p0, eps, max_iters=mi, kernel="cluster", cluster=cluster)
+    torch.cuda.synchronize()
+    assert fused_auction.cluster_launches == before + 1
+    for g, w in zip(got, fused_auction_ref(W, p0, eps, max_iters=mi)):
         assert torch.equal(g, w)
 
 
@@ -138,7 +166,8 @@ def test_flash_kernel_equals_plain(cuda, dtype, B, Hq, Hkv, Sq, Sk, D, causal, w
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("BH,S,N,P", [(8, 512, 64, 64), (4, 96, 16, 16), (2, 256, 128, 128), (3, 40, 8, 24)])
+@pytest.mark.parametrize("BH,S,N,P", [(8, 512, 64, 64), (4, 96, 16, 16), (2, 256, 128, 128), (3, 40, 8, 24),
+                                     (2, 192, 64, 64), (2, 64, 12, 20), (128, 96, 64, 64)])
 def test_ssd_chunk_kernel_equals_plain(cuda, dtype, BH, S, N, P):
     gen = torch.Generator(device=cuda).manual_seed(S)
     xd = torch.randn((BH, S, P), generator=gen, device=cuda).to(dtype)

@@ -110,3 +110,50 @@ def test_ssd_chunk_rejects_bad_input():
         ssd_chunk(*t, 24)  # 32 % 24
     with pytest.raises(ValueError):
         ssd_chunk(t[0], t[1][:, :16], t[2], t[3], 16)
+
+
+def _split(x, on=True):
+    """x as two bf16 parts, hi = bf16(x) and lo = bf16(x − hi), in float32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, ((x - hi).to(torch.bfloat16).float() if on else torch.zeros_like(x))
+
+
+def _chunk_split_emulation(xd, loga, B, C, L, split=True):
+    """The bf16 tensor-core kernel's arithmetic in plain torch: C Bᵀ from bf16
+    operands in float32, decay and mask in float32, then each decayed score
+    (and each B scaled by exp(la_L − la)) split into a bf16 high and low part,
+    each part's products exact (float64 here, the float32 accumulator on the
+    card) and summed."""
+    BH, S, P = xd.shape
+    N = B.shape[-1]
+    nc = S // L
+    x = xd.float().reshape(BH, nc, L, P).double()
+    la = torch.cumsum(loga.reshape(BH, nc, L), -1)
+    Bc, Cc = (t.float().reshape(BH, nc, L, N) for t in (B, C))
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool))
+    scores = torch.where(tri, (Cc @ Bc.transpose(-1, -2)) * torch.exp(torch.clamp(la[..., :, None] - la[..., None, :],
+                                                                                 max=0.0)), 0.0)
+    hi, lo = _split(scores, split)
+    y = (hi.double() @ x + lo.double() @ x).float().reshape(BH, S, P)
+    hi, lo = _split(Bc * torch.exp(la[..., -1:] - la)[..., None], split)
+    states = (hi.double().transpose(-1, -2) @ x + lo.double().transpose(-1, -2) @ x).float()
+    return y, states
+
+
+@pytest.mark.parametrize("L,N,P", [(128, 64, 64), (128, 128, 128), (32, 16, 16)])
+def test_bf16_split_emulation_meets_the_kernel_gate(L, N, P):
+    """The design of the bf16 ssd_chunk kernel, checked before the card: with
+    the scores and the scaled B split into two bf16 parts, y and the states
+    stay within rtol/atol 1e-4 of ``ssd_chunk_ref`` on zamba2-like chunks
+    (L = 128, N = P = 64, loga as in chip_smoke's ssd phase); rounding them to
+    one bf16 part instead would miss that gate."""
+    xd, loga, B, C, _ = _inputs(L + N, 4, 2 * L, P, N)
+    xd, B, C = (torch.from_numpy(a).to(torch.bfloat16) for a in (xd, B, C))
+    loga = torch.from_numpy(loga)
+    y_ref, states_ref, _ = ssd_chunk_ref(xd, loga, B, C, L)
+    y, states = _chunk_split_emulation(xd, loga, B, C, L)
+    torch.testing.assert_close(y, y_ref, **TOL)
+    torch.testing.assert_close(states.reshape(states_ref.shape), states_ref, **TOL)
+    y1, states1 = _chunk_split_emulation(xd, loga, B, C, L, split=False)
+    assert not torch.allclose(y1, y_ref, **TOL) and not torch.allclose(states1.reshape(states_ref.shape),
+                                                                        states_ref, **TOL)

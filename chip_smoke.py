@@ -11,7 +11,9 @@
    the one-block kernel above, both at n = 512), ``flash_attention``
    (bfloat16 on the tensor cores, float32 on the CUDA cores) and
    ``ssd_chunk`` (bfloat16 on the tensor cores, float32 on the CUDA cores)
-   to stated tolerances (at the forward's and the training's shapes),
+   to stated tolerances (at the forward's and the training's shapes, flash
+   also at qwen3-moe's GQA 32:4, qwen2-vl's 12:2 and whisper's non-causal
+   encoder and cross-attention shapes),
    ``demand_accum`` against a float64
    sum and its plain version within 1e-5 / 2e-5 of each cell's mass (float
    atomics change the sum's order from run to run). It times kernel, plain
@@ -57,8 +59,28 @@
    an uninterrupted run to 1e-3 (the GPU's embedding backward sums with
    atomics). One more step is split by CUDA events into forward, backward
    and optimizer, with a torch.profiler breakdown by kernel group.
-7. Prints one ``{"kernels": [...]}`` line and, last, the
-   ``{"ok": true, "device": {...}}`` line. Any failed check exits non-zero.
+7. The MoE family, qwen3-moe-30b-a3b (128 experts, top 8). The stable
+   top-K on the card must order tie-rich probabilities as the CPU does. At
+   full width and 2 layers in float32 (B = 2 × S = 512, one dispatch group
+   a row) the GPU path against the plain CPU path: logits to 1e-3 of the
+   largest, ``expert_load`` exactly equal;
+   then decode teacher-forced against the forward at capacity_factor = E/K
+   to 1e-3. At full width and depth in bf16 (30.2 B parameters drawn on the
+   card tensor by tensor): ``LM.apply`` on B = 2 × S = 2048 (48 flash
+   launches, ``expert_load`` summing to 1,572,864) with a profile by kernel
+   group, and ``DecodeEngine`` answering 4 requests. Training at full width,
+   depth cut to 4: ``make_trainer``, B = 2 × S = 2048, 4 steps, the OCS tick
+   every 2: every step's loads sum to 131,072 and each tick's CCT equals the
+   host ``spectra`` on the expert all-to-all built from that step's loads.
+8. qwen2-vl-2b: float32 parity at 2 layers with a 16 × 16 patch grid and
+   M-RoPE grid positions, text-only teacher forcing; the bf16 forward at
+   full depth, B = 2 × S = 4096 (28 flash launches), and decode.
+9. whisper-tiny at full depth, B = 4, 1500 frames, 448 tokens: float32
+   parity, decode with ``enc_out`` teacher-forced against the forward to
+   1e-3; the bf16 forward (12 flash launches) and decode.
+10. Prints one ``{"kernels": [...]}`` line (``flash_attention``'s launches
+   split by path) and, last, the ``{"ok": true, "device": {...}}`` line.
+   Any failed check exits non-zero.
 
 Without a CUDA device, or without the repository beside it, it fails.
 """
@@ -341,8 +363,13 @@ def phase_flash(rng) -> dict:
         (1, 8, 2, 256, 1024, 64, True, None),      # Sq < Sk
         (1, 4, 2, 77, 77, 32, False, None),        # ragged tiles, no mask
         (1, 6, 2, 1000, 1300, 128, True, 200),     # ragged, GQA 3:1, window, Sq < Sk
+        (2, 32, 4, 2048, 2048, 128, True, None),   # qwen3-moe-30b-a3b prefill, GQA 8:1
+        (2, 12, 2, 4096, 4096, 128, True, None),   # qwen2-vl-2b, GQA 6:1
+        (4, 6, 6, 1500, 1500, 64, False, None),    # whisper-tiny encoder: Sk a multiple of no key tile
+        (4, 6, 6, 448, 1500, 64, False, None),     # whisper-tiny cross-attention, Sq ≠ Sk
+        (4, 6, 6, 448, 448, 64, True, None),       # whisper-tiny decoder self-attention: 3.5 key tiles
     ]
-    max_err, timed = 0.0, None
+    max_err, timed, moe_timed = 0.0, None, None
     for B, Hq, Hkv, Sq, Sk, D, causal, window in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
@@ -357,7 +384,7 @@ def phase_flash(rng) -> dict:
             max_err = max(max_err, err)
             print(f"flash_attention {str(dtype)[6:]} B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} causal={causal} "
                   f"window={window}: max |kernel − plain| {err:.3g}")
-            if (B, Sq, dtype) == (2, 4096, torch.bfloat16):
+            if (B, Hq, Hkv, Sq, D, dtype) == (2, 32, 32, 4096, 64, torch.bfloat16):
                 ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20)
                 plain_ms = cuda_ms(lambda: mha_ref(q, k, v, causal=True), 3, warmup=1)
                 lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
@@ -368,6 +395,19 @@ def phase_flash(rng) -> dict:
                 print(f"flash_attention bf16 (2, 32, 4096, 64) causal: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
                       f"TFLOP/s), plain {plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} ms, "
                       f"bound {b_ms:.4f} ms ({b_by})")
+            if (Hq, Hkv, Sq, dtype) == (32, 4, 2048, torch.bfloat16):
+                ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20)
+                plain_ms = cuda_ms(lambda: mha_ref(q, k, v, causal=True), 3, warmup=1)
+                lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 20)
+                flops = 4.0 * D * B * Hq * attended_pairs(Sq, Sk, True, None)
+                b_ms, b_by = bound(2.0 * 2 * (B * Hq * Sq * D + B * Hkv * Sk * D), flops, BF16_FLOPS)
+                moe_timed = dict(shape=[B, Hq, Hkv, Sq, D], dtype="bfloat16", ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, flops=flops)
+                print(f"flash_attention bf16 (2, 32:4, 2048, 128) causal, qwen3-moe-30b-a3b's shape: kernel {ms:.3f} ms "
+                      f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+                      f"(enable_gqa) {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    timed["shapes"] = [dict(timed), moe_timed]
     timed["max_abs_err"] = max_err
     return timed
 
@@ -444,6 +484,21 @@ def phase_model_parity(seed: int) -> None:
     del cpu, gpu, tree
 
 
+def kernel_group(name: str) -> str:
+    """The group of a CUDA kernel's (lowercase) name in the profiles' breakdowns."""
+    if "ssd_chunk" in name:
+        return "ssd_chunk"
+    if "flash_attention" in name:
+        return "flash_attention"
+    if any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
+        return "matmul (cuBLAS)"
+    if "multi_tensor" in name or "foreach" in name:
+        return "optimizer (foreach)"
+    if any(t in name for t in ("gather", "scatter", "index", "sort")):
+        return "gather/scatter/index/sort"
+    return "other (elementwise, copies, reductions)"
+
+
 def device_time_by_kernel(model, batch) -> tuple[dict[str, float], list[tuple[str, float, int]]]:
     """Device ms of one forward from a torch.profiler trace: by kernel group,
     and the ten costliest kernels as (name, ms, launches)."""
@@ -460,43 +515,50 @@ def device_time_by_kernel(model, batch) -> tuple[dict[str, float], list[tuple[st
             continue
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
-        if "ssd_chunk" in name:
-            group = "ssd_chunk"
-        elif "flash_attention" in name:
-            group = "flash_attention"
-        elif any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
-            group = "matmul (cuBLAS)"
-        else:
-            group = "other (elementwise, copies, reductions)"
+        group = kernel_group(name)
         groups[group] = groups.get(group, 0.0) + ms
         kernels.append((e.key[:90], ms, e.count))
     return groups, sorted(kernels, key=lambda k: -k[1])[:10]
 
 
-def decode_vs_forward(model, engine, prompts):
+def decode_vs_forward(model, engine, prompts, extra: dict | None = None, enc_out=None):
     """Serve ``prompts`` (32 new tokens, greedy) and replay the forward on the
-    tokens it produced (teacher forcing). Returns (result, wall ms, ‖Δ‖/‖ref‖,
-    the forward's logits, the kernel launches of the decode alone)."""
+    tokens it produced (teacher forcing), with the model's other inputs
+    ``extra`` (whisper's ``frames``, whose encoding is ``enc_out``). Returns
+    (result, wall ms, ‖Δ‖/‖ref‖, the forward's logits, the kernel launches of
+    the decode alone)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_chunk
 
     flash_attention.launches = ssd_chunk.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = engine.generate(prompts, 32, keep_logits=True)
+    res = engine.generate(prompts, 32, keep_logits=True, enc_out=enc_out)
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = {"flash_attention": flash_attention.launches, "ssd_chunk": ssd_chunk.launches}
     with torch.inference_mode():
-        forced = model.apply({"tokens": torch.from_numpy(res.tokens[:, :-1]).cuda()})["logits"]
-    check(bool(torch.isfinite(res.logits).all()), "decode logits not finite")
+        forced = model.apply({"tokens": torch.from_numpy(res.tokens[:, :-1]).cuda(), **(extra or {})})["logits"]
+    S0 = prompts.shape[1]
+    check(res.tokens.shape == (len(prompts), S0 + 32) and (res.tokens[:, :S0] == prompts).all()
+          and ((res.tokens >= 0) & (res.tokens < model.cfg.vocab_size)).all(), f"{model.cfg.name} decode: bad tokens")
+    check(bool(torch.isfinite(res.logits).all()), f"{model.cfg.name} decode logits not finite")
     return res, wall_ms, float((res.logits - forced).norm() / forced.norm()), forced, launches
+
+
+def served(model, prompts, extra: dict | None = None, enc_out=None):
+    """``DecodeEngine`` answering ``prompts`` after a short warm-up:
+    ``decode_vs_forward``'s results, the wall in ms a decode step."""
+    from repro_torch.serve import DecodeEngine
+
+    engine = DecodeEngine(model, max_len=128)
+    engine.generate(prompts[:, :4], 2, enc_out=enc_out)  # warm-up
+    res, wall_ms, rel, forced, launches = decode_vs_forward(model, engine, prompts, extra, enc_out)
+    return res, wall_ms / res.logits.shape[1], rel, forced, launches
 
 
 def phase_zamba2(seed: int) -> dict:
     """The LM's path at full size: the forward, then the decode server."""
     from repro_torch.configs import ShapeCfg, get_arch
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan import ssd_chunk
     from repro_torch.models import build_model, concrete_inputs
     from repro_torch.serve import DecodeEngine
 
@@ -506,41 +568,18 @@ def phase_zamba2(seed: int) -> dict:
           f"layers, shared attention after every {cfg.attn_every}")
     B, S = 2, 4096
     batch = concrete_inputs(cfg, ShapeCfg("prefill_4k", S, B, "prefill"), seed=seed)
-    with torch.inference_mode():
-        model.apply(batch)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = ssd_chunk.launches = 0
-        t0 = time.perf_counter()
-        logits = model.apply(batch)["logits"]
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"flash_attention": flash_attention.launches, "ssd_chunk": ssd_chunk.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(launches == {"flash_attention": 6, "ssd_chunk": 38}, f"zamba2 forward launches {launches}, expected 6 and 38")
-    check(tuple(logits.shape) == (B, S, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
-          f"zamba2 forward logits {tuple(logits.shape)} not finite or of the wrong shape")
+    out, wall_ms, peak_gb, launches = forward_timed("zamba2-1.2b", model, batch, {"flash_attention": 6, "ssd_chunk": 38})
+    del out
     print(f"zamba2-1.2b forward B={B} S={S} bf16: wall {wall_ms:.1f} ms, {B * S / wall_ms * 1e3:.0f} tokens/s, "
           f"peak memory {peak_gb:.2f} GB, launches {launches}")
-    del logits
-    groups, top = device_time_by_kernel(model, batch)
-    busy = sum(groups.values())
-    print("zamba2-1.2b forward, device time by kernel (torch.profiler, one more forward): "
-          + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
-          + f"; busy {busy:.1f} ms of the {wall_ms:.1f} ms wall (idle share {1 - busy / wall_ms:.3f})")
-    for name, ms, count in top:
-        print(f"  {ms:8.2f} ms  {count:5d} launches  {name}")
+    print_profile("zamba2-1.2b", model, batch, wall_ms)
 
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
-    engine = DecodeEngine(model, max_len=128)
-    engine.generate(prompts[:, :4], 2)  # warm-up
-    res, wall_ms, rel, forced, decode_launches = decode_vs_forward(model, engine, prompts)
+    res, ms_step, rel, forced, decode_launches = served(model, prompts)
     steps = res.logits.shape[1]
-    check(res.tokens.shape == (4, 96) and (res.tokens[:, :64] == prompts).all()
-          and ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all(), "decode: bad tokens")
     agree = float((res.logits.argmax(-1) == forced.argmax(-1)).float().mean())
     print(f"zamba2-1.2b DecodeEngine bf16: 4 requests, prompt 64, 32 new tokens, greedy: {steps} decode steps in "
-          f"{wall_ms:.1f} ms ({wall_ms / steps:.2f} ms per step), kernel launches while decoding "
+          f"{ms_step * steps:.1f} ms ({ms_step:.2f} ms per step), kernel launches while decoding "
           f"{decode_launches}; decode vs forward logits "
           f"‖Δ‖/‖ref‖ {rel:.4g}, argmax agreement {agree:.4f}")
 
@@ -691,17 +730,7 @@ def step_breakdown(tr, state) -> tuple[dict, dict, float]:
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        name = e.key.lower()
-        if "ssd_chunk" in name:
-            group = "ssd_chunk"
-        elif "flash_attention" in name:
-            group = "flash_attention"
-        elif any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
-            group = "matmul (cuBLAS)"
-        elif "multi_tensor" in name or "foreach" in name:
-            group = "optimizer (foreach)"
-        else:
-            group = "other (elementwise, copies, reductions)"
+        group = kernel_group(e.key.lower())
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
     return phases, groups, span
 
@@ -810,6 +839,386 @@ def phase_train_parity(seed: int) -> None:
     check(abs(l0g - l0c) <= 1e-5 * abs(l0c) and abs(l1g - l1c) <= 1e-5 * abs(l1c), f"train parity: loss {l0g} vs {l0c}")
     check(worst <= 1e-3, f"train parity: a gradient differs by {worst} of its largest entry")
     check(abs(l2g - l2c) <= 1e-4 * abs(l2c), f"train parity: second step's loss {l2g} vs {l2c}")
+
+
+def free_device_memory() -> None:
+    """Give the memory of the phases before back to the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_parity(cfg, seed: int, batch: dict, flash_launches: int) -> tuple:
+    """``cfg`` (float32) on the GPU against the plain CPU path with the same
+    weights, carried through the reference's layout as ``phase_model_parity``
+    does: logits to 1e-3 of their largest. Returns (GPU model, GPU output,
+    CPU output, max |Δ| / max |logit|)."""
+    from repro_torch.interop import params_from_reference, params_to_reference
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+
+    cpu = build_model(cfg, device="cpu", seed=seed)
+    tree = params_to_reference(cfg, cpu.state_dict())
+    gpu = build_model(cfg, device="cuda", seed=seed + 1)
+    gpu.load_state_dict(params_from_reference(cfg, tree))
+    cpu.load_state_dict(params_from_reference(cfg, tree))
+    del tree
+    flash_attention.launches = 0
+    with torch.inference_mode():
+        got = gpu.apply({k: v.cuda() for k, v in batch.items()})
+        want = cpu.apply(batch)
+    check(flash_attention.launches == flash_launches,
+          f"{cfg.name} parity: {flash_attention.launches} flash launches, expected {flash_launches}")
+    got = {k: v.cpu() for k, v in got.items()}
+    rel = float((got["logits"] - want["logits"]).abs().max() / want["logits"].abs().max())
+    check(bool(torch.isfinite(got["logits"]).all()) and rel <= 1e-3,
+          f"{cfg.name} parity: GPU logits differ from the CPU path's by {rel} of the largest")
+    return gpu, got, want, rel
+
+
+def forward_timed(name: str, model, batch: dict, want: dict[str, int]) -> tuple[dict, float, float, dict]:
+    """The second of two ``LM.apply`` runs, timed, with the counters set to 0
+    just before it and read just after; it must launch ``flash_attention``
+    and ``ssd_chunk`` as often as ``want`` says. Returns (output, wall ms,
+    peak GB, the launches read)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    with torch.inference_mode():
+        model.apply(batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = ssd_chunk.launches = 0
+        t0 = time.perf_counter()
+        out = model.apply(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"flash_attention": flash_attention.launches, "ssd_chunk": ssd_chunk.launches}
+    check(launches == want, f"{name} forward launches {launches}, expected {want}")
+    B, S = batch["tokens"].shape
+    check(tuple(out["logits"].shape) == (B, S, model.cfg.vocab_size) and bool(torch.isfinite(out["logits"]).all()),
+          f"{name} forward logits {tuple(out['logits'].shape)} not finite or of the wrong shape")
+    return out, wall_ms, torch.cuda.max_memory_allocated() / 1e9, launches
+
+
+def print_profile(name: str, model, batch: dict, wall_ms: float) -> None:
+    """One more forward under torch.profiler: device time by kernel group
+    against the timed forward's wall, and the ten costliest kernels."""
+    groups, top = device_time_by_kernel(model, batch)
+    busy = sum(groups.values())
+    print(f"{name} forward, device time by kernel group (torch.profiler, one more forward): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+          + f"; busy {busy:.1f} ms of the {wall_ms:.1f} ms wall (idle share {1 - busy / wall_ms:.3f})")
+    for kname, ms, count in top:
+        print(f"  {ms:8.2f} ms  {count:5d} launches  {kname}")
+
+
+def decode_step_profile(name: str, model) -> None:
+    """One decode step of 4 requests (after two), timed on the host and split
+    by kernel group under torch.profiler (one more step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    token = torch.zeros((4, 1), dtype=torch.int64, device=model.device)
+    with torch.inference_mode():
+        cache = model.init_cache(4, 128)
+        for _ in range(2):
+            _, cache = model.decode_step(cache, token)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = model.decode_step(cache, token)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.decode_step(cache, token)
+            torch.cuda.synchronize()
+    groups: dict[str, float] = {}
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            group = kernel_group(e.key.lower())
+            groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+            launches += e.count
+    busy = sum(groups.values())
+    print(f"{name} one decode step (4 requests): wall {step_ms:.2f} ms; device time by kernel group (torch.profiler, "
+          "one more step): " + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+          + f"; busy {busy:.2f} ms over {launches} kernel launches (idle share {1 - busy / step_ms:.3f})")
+
+
+MOE = "qwen3-moe-30b-a3b"
+
+
+def phase_moe_parity(seed: int) -> None:
+    """The stable top-K on the card against the CPU's on integer-valued
+    probabilities (ties everywhere), then qwen3-moe-30b-a3b at full width, 2
+    layers, float32, B = 2 × S = 512 (S ≥ 4·E: one dispatch group per row, the
+    expert-major slot layout of the timed paths): the GPU path against the
+    plain CPU path with the same weights (logits to 1e-3 of their largest,
+    ``expert_load`` exactly equal), then teacher forcing at capacity_factor =
+    E/K, as the reference's decode test sets it, so that no token is dropped
+    at the forward's group size nor at decode's."""
+    from repro_torch.configs import ShapeCfg, get_arch
+    from repro_torch.models import build_model, concrete_inputs
+    from repro_torch.models.blocks import top_k_stable
+    from repro_torch.serve import DecodeEngine
+
+    cfg = replace(get_arch(MOE), num_layers=2, dtype="float32")
+    m = cfg.moe
+    probs = torch.from_numpy(np.random.default_rng(seed).integers(0, 4, (4096, m.num_experts)).astype(np.float32))
+    want_v, want_i = top_k_stable(probs, m.top_k)
+    got_v, got_i = (t.cpu() for t in top_k_stable(probs.cuda(), m.top_k))
+    print(f"top_k_stable on the card, (4096, {m.num_experts}) integer-valued probabilities, K={m.top_k}: indices "
+          f"equal the CPU's: {torch.equal(got_i, want_i)}, values equal: {torch.equal(got_v, want_v)}")
+    check(torch.equal(got_i, want_i) and torch.equal(got_v, want_v), "top_k_stable: the card orders ties otherwise")
+    B, S = 2, 512
+    check(S >= 4 * m.num_experts, f"{MOE} parity: S={S} would dispatch in one global group")
+    tokens = concrete_inputs(cfg, ShapeCfg("parity", S, B, "prefill"), seed=seed, device="cpu")["tokens"]
+    gpu, got, want, rel = lm_parity(cfg, seed, {"tokens": tokens}, 2)
+    same = torch.equal(got["expert_load"], want["expert_load"])
+    aux = abs(float(got["aux_loss"]) - float(want["aux_loss"]))
+    print(f"{MOE} full width, 2 layers, float32, B={B} S={S} (a group per row): GPU logits equal the plain CPU path's "
+          f"(max |Δ| / max "
+          f"|logit| = {rel:.3g}); expert_load equal: {same} (sum {float(got['expert_load'].sum()):.0f}); aux loss "
+          f"|Δ| {aux:.3g}")
+    check(same, f"{MOE} parity: expert_load differs, GPU {got['expert_load'].tolist()} vs CPU "
+                f"{want['expert_load'].tolist()}")
+    check(aux <= 1e-5, f"{MOE} parity: aux loss differs by {aux}")
+    full = replace(cfg, moe=replace(m, capacity_factor=m.num_experts / m.top_k))
+    state = gpu.state_dict()
+    del gpu
+    model = build_model(full, seed=seed)
+    model.load_state_dict(state)
+    del state
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+    rel = decode_vs_forward(model, DecodeEngine(model, max_len=128), prompts)[2]
+    print(f"{MOE} 2 layers, float32, capacity_factor = E/K: decode vs forward logits ‖Δ‖/‖ref‖ {rel:.3g}")
+    check(rel <= 1e-3, f"{MOE} teacher forcing: decode logits differ from the forward's by {rel} of their norm")
+    del model
+    free_device_memory()
+
+
+def phase_moe_serve(seed: int) -> int:
+    """qwen3-moe-30b-a3b at full width and depth, bf16 (30.2 B parameters,
+    drawn on the card tensor by tensor): ``LM.apply`` on B = 2 × S = 2048 (48
+    flash launches, ``expert_load`` summing to B·S·K·layers), a profile by
+    kernel group, then ``DecodeEngine`` answering 4 requests."""
+    from repro_torch.configs import ShapeCfg, get_arch
+    from repro_torch.models import build_model, concrete_inputs
+
+    cfg = get_arch(MOE)
+    m = cfg.moe
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    expert_params = 3 * m.num_experts * cfg.d_model * m.d_ff_expert * cfg.num_layers
+    print(f"{MOE}: {n_params / 1e9:.3f} B parameters in {cfg.dtype} ({n_params * 2 / 1e9:.1f} GB; experts "
+          f"{expert_params / 1e9:.3f} B), {cfg.num_layers} layers, {m.num_experts} experts top-{m.top_k}; drawn on "
+          f"the card in {time.perf_counter() - t0:.1f} s")
+    B, S = 2, 2048
+    batch = concrete_inputs(cfg, ShapeCfg("prefill_2k", S, B, "prefill"), seed=seed)
+    out, wall_ms, peak_gb, launches = forward_timed(MOE, model, batch, {"flash_attention": cfg.num_layers,
+                                                                        "ssd_chunk": 0})
+    load = out["expert_load"]
+    want = B * S * m.top_k * cfg.num_layers
+    check(float(load.sum()) == want, f"{MOE} expert_load sums to {float(load.sum())}, expected {want}")
+    print(f"{MOE} forward B={B} S={S} bf16: wall {wall_ms:.1f} ms, {B * S / wall_ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GB, {cfg.num_layers} flash launches; expert_load sums to {float(load.sum()):.0f} "
+          f"(min {float(load.min()):.0f}, max {float(load.max()):.0f} over the {m.num_experts} experts, summed over "
+          f"layers), aux loss {float(out['aux_loss']):.5f}")
+    del out
+    print_profile(MOE, model, batch, wall_ms)
+    del batch
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+    ms_step = served(model, prompts)[1]
+    floor_ms = expert_params * 2 / HBM_BYTES_PER_S * 1e3
+    print(f"{MOE} DecodeEngine bf16: 4 requests, prompt 64, 32 new tokens, greedy: {ms_step:.2f} ms a step; every "
+          f"step reads all {m.num_experts} experts of every layer ({expert_params * 2 / 1e9:.1f} GB): at least "
+          f"{floor_ms:.2f} ms a step at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    decode_step_profile(MOE, model)
+    del model
+    free_device_memory()
+    return launches["flash_attention"]
+
+
+def phase_moe_train(seed: int) -> int:
+    """``make_trainer`` on qwen3-moe-30b-a3b at full width, depth cut to 4
+    (full depth would hold ~362 GB of state), bf16 parameters and float32
+    moments, B = 2 × S = 2048 of ``make_stream(seed)``, 4 steps, the OCS tick
+    every 2 steps on 4 switches and 8 racks: every step's ``expert_load``
+    sums to B·S·K·4 and each tick's CCT equals the port's host ``spectra`` on
+    the expert-load matrix ``_demand_from_stats`` builds from that step's
+    loads. Returns the flash launches of the 4 steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.fabric import OCSFabric
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.train.loop import _demand_from_stats
+
+    cfg = replace(get_arch(MOE), num_layers=4)
+    B, S, steps = 2, 2048, 4
+    tr = make_trainer(cfg, steps=steps, batch=B, seq=S, lr=3e-4, seed=seed, ocs_switches=4, ocs_delta_us=20.0,
+                      ocs_every=2, log_every=1)
+    per_step = []
+    step_fn = tr.train_step
+
+    def counted_step(*args):
+        flash_attention.launches = 0
+        out = step_fn(*args)
+        per_step.append((flash_attention.launches, out[2]["expert_load"].cpu()))
+        return out
+
+    tr.train_step = counted_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = tr.run(seed)
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = tr.model.param_count()
+    want = B * S * cfg.moe.top_k * cfg.num_layers
+    print(f"{MOE} training, 4 layers: {n_params / 1e9:.3f} B parameters in bf16, float32 moments; B={B} S={S}, "
+          f"{steps} steps: run {run_s:.1f} s, peak memory {peak_gb:.2f} GB")
+    for h, (fl, load) in zip(state.history, per_step):
+        print(f"  step {h['step']}: loss {h['loss']:.5f}, wall {h['time_s'] * 1e3:.1f} ms, flash launches {fl}, "
+              f"expert_load sum {float(load.sum()):.0f} (min {float(load.min()):.0f}, max {float(load.max()):.0f})")
+    check(state.step == steps and len(per_step) == steps, f"final step {state.step}, {len(per_step)} steps run")
+    check(all(np.isfinite(h["loss"]) for h in state.history), f"training losses {state.history}")
+    check(all(fl == cfg.num_layers for fl, _ in per_step), f"flash launches per step {[f for f, _ in per_step]}")
+    check(all(float(load.sum()) == want for _, load in per_step),
+          f"expert_load sums {[float(x.sum()) for _, x in per_step]}, expected {want} each")
+    walls = [h["time_s"] * 1e3 for h in state.history[1:]]
+    wall_ms = float(np.mean(walls))
+    print(f"{MOE} train step after the first: wall {wall_ms:.1f} ms (min {min(walls):.1f}, max {max(walls):.1f}), "
+          f"{B * S / wall_ms * 1e3:.0f} tokens/s")
+    check([r["step"] for r in state.cct_log] == [1, 3], f"cct_log {state.cct_log}")
+    ring = _demand_from_stats(8, {}, 0)
+    fabric = OCSFabric(num_switches=4, reconfig_delay_s=20e-6)
+    for r in state.cct_log:
+        D = _demand_from_stats(8, {"expert_load": per_step[r["step"]][1]}, r["step"])
+        check(D.shape == ring.shape and not np.allclose(D / D.max(), ring / ring.max()),
+              "the tick's matrix is the ring, not the expert all-to-all")
+        res, cct = fabric.schedule_bytes(D * 1e9)
+        check(r["cct_s"] == cct and r["makespan"] == res.makespan and r["configs"] == res.schedule.num_configs(),
+              f"tick {r} differs from host spectra on the expert-load matrix ({cct} s)")
+        print(f"  OCS tick after step {r['step']}: expert all-to-all, rack loads {np.round(D.sum(0) / D.sum(), 4).tolist()}"
+              f" of the total; CCT {r['cct_s'] * 1e3:.4f} ms (= host spectra), makespan {r['makespan']:.6f}, LB "
+              f"{r['lb']:.6f}, {r['configs']} circuits")
+    launches = sum(fl for fl, _ in per_step)
+    del tr, state, per_step
+    free_device_memory()
+    return launches
+
+
+def mrope_grid(B: int, S: int, side: int) -> torch.Tensor:
+    """Qwen2-VL's (t, h, w) M-RoPE positions for one image of side × side
+    merged patches at the start of each row, then text: patch (row, col)
+    takes (0, row, col); text token i after the image takes side + i in all
+    three streams."""
+    p = torch.arange(S)
+    n = side * side
+    t = torch.where(p < n, 0, p - n + side)
+    h = torch.where(p < n, p // side, t)
+    w = torch.where(p < n, p % side, t)
+    return torch.stack([t, h, w], -1)[None].expand(B, S, 3).contiguous()
+
+
+def vlm_batch(cfg, B: int, S: int, seed: int, device) -> dict:
+    """A 448 × 448 image, 14-pixel patches merged 2 × 2 (a 16 × 16 grid, 256
+    embeddings), then text; positions from ``mrope_grid``."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.models import concrete_inputs
+
+    batch = concrete_inputs(cfg, ShapeCfg("vlm", S, B, "prefill"), seed=seed, device=device)
+    check(batch["patch_embeds"].shape[1] == 256, f"patch_embeds {tuple(batch['patch_embeds'].shape)}")
+    batch["positions"] = mrope_grid(B, S, 16).to(device)
+    return batch
+
+
+def phase_vlm(seed: int) -> int:
+    """qwen2-vl-2b: float32 parity with the CPU path at full width and 2 layers
+    (B = 1 × S = 320: the image and 64 text tokens), teacher forcing on a
+    text-only batch there; then full width and depth in bf16, B = 2 × S =
+    4096 (28 flash launches), and ``DecodeEngine`` answering 4 requests."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serve import DecodeEngine
+
+    name = "qwen2-vl-2b"
+    cfg = get_arch(name)
+    small = replace(cfg, num_layers=2, dtype="float32")
+    gpu, _, _, rel = lm_parity(small, seed, vlm_batch(small, 1, 320, seed, "cpu"), 2)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+    rel_tf = decode_vs_forward(gpu, DecodeEngine(gpu, max_len=128), prompts)[2]
+    print(f"{name} full width, 2 layers, float32, B=1 S=320 (16 × 16 patch grid + 64 text tokens): GPU logits equal "
+          f"the plain CPU path's (max |Δ| / max |logit| = {rel:.3g}); text-only decode vs forward ‖Δ‖/‖ref‖ "
+          f"{rel_tf:.3g}")
+    check(rel_tf <= 1e-3, f"{name} teacher forcing: decode logits differ from the forward's by {rel_tf}")
+    del gpu
+    free_device_memory()
+
+    model = build_model(cfg, seed=seed)
+    B, S = 2, 4096
+    batch = vlm_batch(cfg, B, S, seed, "cuda")
+    out, wall_ms, peak_gb, launches = forward_timed(name, model, batch, {"flash_attention": cfg.num_layers,
+                                                                         "ssd_chunk": 0})
+    del out
+    print(f"{name}: {model.param_count() / 1e9:.3f} B parameters in {cfg.dtype}; forward B={B} S={S} (256 patch "
+          f"embeddings + text, M-RoPE grid positions): wall {wall_ms:.1f} ms, {B * S / wall_ms * 1e3:.0f} tokens/s, "
+          f"peak memory {peak_gb:.2f} GB, {cfg.num_layers} flash launches")
+    print_profile(name, model, batch, wall_ms)
+    ms_step = served(model, prompts)[1]
+    print(f"{name} DecodeEngine bf16: 4 requests, prompt 64, 32 new tokens, greedy: {ms_step:.2f} ms a step")
+    del model, batch
+    free_device_memory()
+    return launches["flash_attention"]
+
+
+def phase_whisper(seed: int) -> int:
+    """whisper-tiny at full width and depth: B = 4, 1500 frames (30 s of audio
+    after the stubbed conv front end), 448 decoder tokens. Float32 parity with
+    the CPU path, decode with ``enc_out`` teacher-forced against the float32
+    forward to 1e-3; then the bf16 forward (12 flash launches: 4 encoder, 4
+    self, 4 cross) and ``DecodeEngine`` answering 4 requests."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serve import DecodeEngine
+
+    name = "whisper-tiny"
+    cfg = get_arch(name)
+    B, S, S_enc = 4, 448, 1500
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+    frames = torch.from_numpy(rng.standard_normal((B, S_enc, cfg.d_model), dtype=np.float32) * np.float32(0.02))
+    f32 = replace(cfg, dtype="float32")
+    launches = cfg.encoder_layers + 2 * cfg.num_layers  # encoder self, decoder self and cross
+    gpu, _, _, rel = lm_parity(f32, seed, {"tokens": tokens, "frames": frames}, launches)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+    frames4 = frames[:4].cuda()
+    with torch.inference_mode():
+        enc_out = gpu.encode(frames4)
+    rel_tf = decode_vs_forward(gpu, DecodeEngine(gpu, max_len=128), prompts, {"frames": frames4}, enc_out)[2]
+    print(f"{name} full width and depth, float32, B={B}, {S_enc} frames, {S} tokens: GPU logits equal the plain CPU "
+          f"path's (max |Δ| / max |logit| = {rel:.3g}); decode with enc_out vs forward ‖Δ‖/‖ref‖ {rel_tf:.3g}")
+    check(rel_tf <= 1e-3, f"{name} teacher forcing: decode logits differ from the forward's by {rel_tf}")
+    del gpu, enc_out
+    free_device_memory()
+
+    model = build_model(cfg, seed=seed)
+    batch = {"tokens": tokens.cuda(), "frames": frames.cuda()}
+    out, wall_ms, peak_gb, read = forward_timed(name, model, batch, {"flash_attention": launches, "ssd_chunk": 0})
+    del out
+    print(f"{name}: {model.param_count() / 1e6:.1f} M parameters in {cfg.dtype}; forward B={B}, {S_enc} frames, "
+          f"{S} tokens: wall {wall_ms:.1f} ms, {B * S / wall_ms * 1e3:.0f} decoder tokens/s, peak memory "
+          f"{peak_gb:.2f} GB, {launches} flash launches")
+    with torch.inference_mode():
+        enc_out = model.encode(frames4.to(torch.bfloat16))
+    ms_step = served(model, prompts, {"frames": frames4.to(torch.bfloat16)}, enc_out)[1]
+    print(f"{name} DecodeEngine bf16 with enc_out: 4 requests, prompt 64, 32 new tokens, greedy: {ms_step:.2f} ms a step")
+    del model, batch, enc_out
+    free_device_memory()
+    return read["flash_attention"]
 
 
 def buckets(seed: int):
@@ -956,6 +1365,16 @@ def main() -> None:
     phase_train_parity(args.seed)
     train_launches = phase_train(args.seed)
     print(f"training phases: {time.perf_counter() - t0:.1f} s")
+    free_device_memory()
+    t0 = time.perf_counter()
+    phase_moe_parity(args.seed)
+    by_path = {"forward": launches["flash_attention"], "train": train_launches["flash_attention"],
+               "moe_forward": phase_moe_serve(args.seed), "moe_train": phase_moe_train(args.seed)}
+    print(f"MoE phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["vlm_forward"] = phase_vlm(args.seed)
+    by_path["audio_forward"] = phase_whisper(args.seed)
+    print(f"VLM and audio phases: {time.perf_counter() - t0:.1f} s")
     launches["demand_accum"] = demand_accum.launches
 
     bid_main = bid["shapes"][1]  # (8, 64): the moe bucket's shape
@@ -981,11 +1400,10 @@ def main() -> None:
              kernel_by_n=fused["kernel_by_n"], rounds=fused["rounds"], bids=fused["bids"]),
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:29",
-             launches=launches["flash_attention"] + train_launches["flash_attention"],
-             launches_by_path={"forward": launches["flash_attention"], "train": train_launches["flash_attention"]},
+             launches=sum(by_path.values()), launches_by_path=by_path,
              max_abs_err=flash["max_abs_err"], ms=flash["ms"], plain_ms=flash["plain_ms"],
              bound_ms=flash["bound_ms"], bound_by=flash["bound_by"], library_ms=flash["library_ms"],
-             shape=flash["shape"], dtype=flash["dtype"]),
+             shape=flash["shape"], dtype=flash["dtype"], shapes=flash["shapes"]),
         dict(name="ssd_chunk", route="cuda", source="src/repro_torch/csrc/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:25",
              launches=launches["ssd_chunk"] + train_launches["ssd_chunk"],

@@ -1,6 +1,5 @@
 """The 10 architectures (exact dims) + shapes: the port's copy of
-``repro.configs.registry``. Only the dense, ssm and hybrid families run in
-the port so far; the others are kept as data.
+``repro.configs.registry``; every one of them runs in the port.
 
 `head_dim` choices follow the public configs where the sources leave them
 implicit.

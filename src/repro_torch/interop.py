@@ -81,25 +81,33 @@ def from_reference(arrays: dict[str, np.ndarray], device) -> DeviceSchedule | To
 # LM parameters.
 # ---------------------------------------------------------------------------
 
-_TOP = ("embed", "final_norm", "lm_head")
+_TOP = ("embed", "final_norm", "lm_head", "enc_norm")
+
+
+def _sublayers(cfg: ModelConfig) -> tuple[tuple[str, str], ...]:
+    """A dense/moe/vlm layer's (port key part, reference key) pairs: the port's
+    dense and vlm layer is the attention block itself, its moe layer a
+    ``ModuleDict`` of ``attn`` and ``moe``; the reference nests both."""
+    return (("attn.", "attn"), ("moe.", "moe")) if cfg.family == "moe" else (("", "attn"),)
 
 
 def _blocks(cfg: ModelConfig):
     """Per block of the model: (the port's key prefix, the path to its dict in
     the reference tree, its index on the stacked ``lax.scan`` axis or None)."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    if cfg.family == "dense":
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family in ("dense", "moe", "vlm"):
         period, n_periods, rem = layer_pattern(cfg)
-        for i in range(n_periods):
-            for j in range(len(period)):
-                yield f"periods.{i}.{j}.", ("periods", j, "attn"), i
-        for i in range(len(rem)):
-            yield f"remainder.{i}.", ("remainder", i, "attn"), None
+        for part, key in _sublayers(cfg):
+            for i in range(n_periods):
+                for j in range(len(period)):
+                    yield f"periods.{i}.{j}.{part}", ("periods", j, key), i
+            for i in range(len(rem)):
+                yield f"remainder.{i}.{part}", ("remainder", i, key), None
     elif cfg.family == "ssm":
         for i in range(cfg.num_layers):
             yield f"layers.{i}.", ("layers",), i
-    else:
+    elif cfg.family == "hybrid":
         n_groups, rem_n = hybrid_layout(cfg)
         for g in range(n_groups):
             for i in range(cfg.attn_every):
@@ -107,6 +115,12 @@ def _blocks(cfg: ModelConfig):
         yield "shared_attn.", ("shared_attn",), None
         for i in range(rem_n):
             yield f"remainder.{i}.", ("remainder", i), None
+    else:
+        for i in range(cfg.encoder_layers):
+            yield f"enc_layers.{i}.", ("enc_layers",), i
+        for key in ("self", "cross"):
+            for i in range(cfg.num_layers):
+                yield f"dec_layers.{i}.{key}.", ("dec_layers", key), i
 
 
 def _tensor(a) -> torch.Tensor:
@@ -149,12 +163,14 @@ def params_to_reference(cfg: ModelConfig, state_dict: dict[str, torch.Tensor]) -
         return {name: np.stack([d[name] for d in per]) for name in per[0]}
 
     tree = {k: arr(state_dict[k]) for k in _TOP if k in state_dict}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         period, n_periods, rem = layer_pattern(cfg)
-        tree["periods"] = [{"attn": stack([f"periods.{i}.{j}." for i in range(n_periods)])}
+        parts = _sublayers(cfg)
+        tree["periods"] = [{key: stack([f"periods.{i}.{j}.{part}" for i in range(n_periods)]) for part, key in parts}
                            for j in range(len(period))]
         if rem:
-            tree["remainder"] = [{"attn": leaves(f"remainder.{i}.")} for i in range(len(rem))]
+            tree["remainder"] = [{key: leaves(f"remainder.{i}.{part}") for part, key in parts}
+                                 for i in range(len(rem))]
     elif cfg.family == "ssm":
         tree["layers"] = stack([f"layers.{i}." for i in range(cfg.num_layers)])
     elif cfg.family == "hybrid":
@@ -163,8 +179,12 @@ def params_to_reference(cfg: ModelConfig, state_dict: dict[str, torch.Tensor]) -
         tree["shared_attn"] = leaves("shared_attn.")
         if rem_n:
             tree["remainder"] = [leaves(f"remainder.{i}.") for i in range(rem_n)]
+    elif cfg.family == "audio":
+        tree["enc_layers"] = stack([f"enc_layers.{i}." for i in range(cfg.encoder_layers)])
+        tree["dec_layers"] = {key: stack([f"dec_layers.{i}.{key}." for i in range(cfg.num_layers)])
+                              for key in ("self", "cross")}
     else:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        raise ValueError(f"unknown family {cfg.family!r}")
     return tree
 
 

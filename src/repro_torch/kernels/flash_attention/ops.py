@@ -42,9 +42,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 
     Query head h reads KV head ``h // (Hq // Hkv)``; queries are aligned to
     the end of the KV stream. A query row that no key may attend (only
-    possible with Sq > Sk under ``causal``) comes out 0
-    from the kernel, as from the reference kernel; ``mha_ref`` would give
-    the mean of V there.
+    possible with Sq > Sk under ``causal``: the first Sq − Sk rows) comes
+    out 0 on every device, as from the reference kernel: the CUDA kernel
+    writes 0 there, and the CPU path zeroes the rows where ``mha_ref``
+    would give the mean of V.
     """
     _check(q, k, v)
     if window is not None and window < 1:
@@ -53,7 +54,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = D ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
-        return mha_ref(q, k, v, causal=causal, window=window, scale=scale)
+        o = mha_ref(q, k, v, causal=causal, window=window, scale=scale)
+        if causal and Sq > Sk:
+            o[:, :, :Sq - Sk] = 0
+        return o
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES:

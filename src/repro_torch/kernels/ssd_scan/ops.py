@@ -7,8 +7,10 @@ the kernel, a CPU tensor takes the plain ``ssd_chunk_ref``.
 
 ``ssd_scan`` follows the reference's ``_ssd_fwd_impl``: the chunk pass, the
 cross-chunk recurrence ``H_out(c) = gate_c · H_in(c) + state_c`` (here in its
-closed form, one batched product with the decays between chunks, where the
-reference runs an associative scan), and the inter-chunk correction
+closed form, one batched product with the decays between chunks, within
+blocks of at most ``BLOCK_CHUNKS`` chunks whose entering state is carried
+from block to block, where the reference runs an associative scan; memory
+stays linear in the chunk count), and the inter-chunk correction
 ``y += (C ⊙ exp(la)) @ H_in``. It is a ``torch.autograd.Function`` whose
 backward recomputes through ``ssd_chunked``, the same function with the
 plain ``ssd_chunk_ref`` in place of the kernel (the counterpart of the
@@ -25,6 +27,7 @@ from .. import backend
 from .ref import ssd_chunk_ref, ssd_decode_step_ref
 
 MAX_DIM = 128  # the kernel's bound on the chunk length, N and P
+BLOCK_CHUNKS = 64  # chunks a block of the cross-chunk recurrence's closed form
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -77,6 +80,33 @@ def ssd_chunk(xd: torch.Tensor, loga: torch.Tensor, B: torch.Tensor, C: torch.Te
 ssd_chunk.launches = 0
 
 
+def _cross_chunk(states: torch.Tensor, la_end: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """The states entering each chunk and the final one, (BH, nc + 1, N, P):
+    H(0) = h0, H(c + 1) = exp(la_end_c)·H(c) + state_c.
+
+    In closed form within a block of chunks c0..c1 (at most ``BLOCK_CHUNKS``),
+    H(c) = exp(lx_c)·H(c0) + Σ_{c0 ≤ c' < c} exp(lx_c − lx_{c'+1})·state_c',
+    lx the log-decay from the block's start; H(c1) enters the next block.
+    The gates' logs are summed, not their products taken: those would
+    underflow to 0 over many chunks."""
+    BH, nc, N, P = states.shape
+    flat = states.reshape(BH, nc, N * P)
+    h_in = h0.float().reshape(BH, 1, N * P)  # the state entering the block
+    parts = []
+    for c0 in range(0, nc, BLOCK_CHUNKS):
+        nb = min(BLOCK_CHUNKS, nc - c0)
+        lx = torch.cat([torch.zeros((BH, 1), device=states.device),
+                        torch.cumsum(la_end[:, c0:c0 + nb], dim=-1)], dim=1)  # (BH, nb + 1)
+        diff = lx[:, :, None] - lx[:, None, 1:]  # (BH, nb + 1, nb)
+        before = torch.tril(torch.ones((nb + 1, nb), dtype=torch.bool, device=states.device), diagonal=-1)
+        decay = torch.where(before, torch.exp(torch.clamp(diff, max=0.0)), 0.0)
+        Hb = decay @ flat[:, c0:c0 + nb] + torch.exp(lx)[..., None] * h_in
+        parts.append(Hb if c0 == 0 else Hb[:, 1:])
+        h_in = Hb[:, -1:]
+    H = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return H.reshape(BH, nc + 1, N, P)
+
+
 def _ssd_fwd(xd, loga, B, C, h0, chunk_fn=ssd_chunk):
     BH, S, P = xd.shape
     N = B.shape[-1]
@@ -84,16 +114,7 @@ def _ssd_fwd(xd, loga, B, C, h0, chunk_fn=ssd_chunk):
     nc = S // chunk
     y_intra, states, _ = chunk_fn(xd, loga, B, C, chunk)
     la = torch.cumsum(loga.float().reshape(BH, nc, chunk), dim=-1)
-    # Log-decay from the start to the start of chunk c, for c = 0..nc. The
-    # gates are exp(la[..., -1]); their logs would underflow to −inf.
-    lx = torch.cat([torch.zeros((BH, 1), device=xd.device), torch.cumsum(la[..., -1], dim=-1)], dim=1)
-    # H(c) = exp(lx_c)·h0 + Σ_{c' < c} exp(lx_c − lx_{c'+1})·state_c': the state
-    # entering chunk c; H(nc) is the final state.
-    diff = lx[:, :, None] - lx[:, None, 1:]  # (BH, nc+1, nc)
-    before = torch.tril(torch.ones((nc + 1, nc), dtype=torch.bool, device=xd.device), diagonal=-1)
-    decay = torch.where(before, torch.exp(torch.clamp(diff, max=0.0)), 0.0)
-    H = (decay @ states.reshape(BH, nc, N * P)).reshape(BH, nc + 1, N, P)
-    H = H + torch.exp(lx)[..., None, None] * h0.float()[:, None]
+    H = _cross_chunk(states, la[..., -1], h0)
     h_in, hT = H[:, :nc], H[:, nc]
     Cc = C.reshape(BH, nc, chunk, N)
     y_inter = torch.einsum("bcln,bcnp->bclp", Cc * torch.exp(la)[..., None], h_in).reshape(BH, S, P)

@@ -4,7 +4,9 @@
         --batch 4 --prompt-len 16 --new-tokens 32 [--device cpu]
 
 Runs on CUDA unless ``--device cpu`` is given; without a GPU the default
-raises.
+raises. Every registered arch is served but the audio one (whisper-tiny):
+its decoder needs an encoder output that this launcher, like the
+reference's, does not make.
 """
 
 from __future__ import annotations

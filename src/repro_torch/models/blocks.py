@@ -1,8 +1,8 @@
-"""Transformer and Mamba-2 blocks with full-sequence and decode paths.
+"""Transformer, MoE and Mamba-2 blocks with full-sequence and decode paths.
 
-Counterpart of ``repro.models.blocks`` (the MoE block is not ported yet).
-Each block is an ``nn.Module`` holding the reference's parameters under the
-reference's names and layouts; ``forward(x, ...)`` returns ``(y, new_cache)``.
+Counterpart of ``repro.models.blocks``. Each block is an ``nn.Module``
+holding the reference's parameters under the reference's names and layouts;
+``forward(x, ...)`` returns ``(y, new_cache)``, the MoE block ``(y, stats)``.
 
 Caches are dicts of tensors. Unlike the reference, whose arrays are
 immutable, the attention cache is written in place (one slot per step) and
@@ -12,11 +12,13 @@ cache. The position ``pos`` is a Python int, so a step needs no host read.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, MoECfg
 from ..kernels.flash_attention.ops import mha
 from ..kernels.ssd_scan.ops import ssd_decode_step, ssd_scan
 from .layers import apply_rope, causal_conv1d, dense, rms_norm, silu, winit, zinit
@@ -140,6 +142,123 @@ class Attention(nn.Module):
             h = rms_norm(x, self.norm2, cfg.norm_eps)
             x = x + dense(silu(dense(h, self.wi_gate)) * dense(h, self.wi_up), self.wdown)
         return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MoE block: capacity-based gather/scatter dispatch, as the reference's.
+# ---------------------------------------------------------------------------
+
+def expert_capacity(T: int, m: MoECfg) -> int:
+    """Slots an expert has for a group of T tokens: ⌈T·K·cf / E⌉ rounded up
+    to a multiple of 4, at least 4."""
+    C = int(math.ceil(T * m.top_k * m.capacity_factor / m.num_experts))
+    return max(4, -(-C // 4) * 4)
+
+
+def top_k_stable(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest along the last axis, ties to the lower index first, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_ffn(p: "MoE", x: torch.Tensor, m: MoECfg):
+    """Routed expert FFN on G groups of T tokens, x (G, T, D) → (G, T, D),
+    plus the routing stats (``repro.models.blocks.moe_ffn`` on each group).
+
+    Each (token, choice) takes its place in its expert's queue of its group
+    by a token-major, choice-minor exclusive prefix count; one past the
+    capacity C it goes to a sentinel slot and is dropped. The slots are laid
+    out expert-major over the groups, (E, G·C), so one batched product an
+    expert serves every group without a transpose. Tokens gather their K
+    slots' outputs and sum them weighted by their gates, which are 0 for a
+    dropped choice (it reads slot 0): the sums of the reference's
+    scatter-add, without float atomics.
+    ``expert_load`` counts every choice, dropped ones too, summed over the
+    groups; ``aux_loss`` is the groups' mean.
+    """
+    G, T, D = x.shape
+    E, K = m.num_experts, m.top_k
+    probs = torch.softmax(dense(x, p.router).float(), dim=-1)  # (G, T, E)
+    gate_vals, gate_idx = top_k_stable(probs, K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    C = expert_capacity(T, m)
+    e_flat = gate_idx.reshape(G, T * K)  # token-major, choice-minor
+    counts = torch.zeros((G, E), dtype=torch.int64, device=x.device).scatter_add_(1, e_flat, torch.ones_like(e_flat))
+    # The exclusive prefix count of each choice's expert, as the reference's
+    # cumsum of one-hots gives it: its rank among the same expert's choices
+    # in a stable sort by expert.
+    order = torch.argsort(e_flat, dim=1, stable=True)
+    starts = torch.cumsum(counts, dim=1) - counts
+    rank = torch.arange(T * K, device=x.device) - torch.gather(starts, 1, torch.gather(e_flat, 1, order))
+    pos = torch.empty_like(rank).scatter_(1, order, rank)
+    keep = pos < C
+    group = torch.arange(G, device=x.device)[:, None]
+    n = E * G * C
+    slot = (e_flat * G + group) * C + pos
+    sent = torch.where(keep, slot, n).reshape(-1)  # overflow → sentinel n, dropped with it
+    tok = (group * T + torch.arange(T, device=x.device).repeat_interleave(K)).reshape(-1)
+    token_map = torch.zeros((n + 1,), dtype=torch.int64, device=x.device).scatter_(0, sent, tok)[:n]
+    valid = torch.zeros((n + 1,), dtype=x.dtype, device=x.device).scatter_(
+        0, sent, torch.ones((1,), dtype=x.dtype, device=x.device).expand(G * T * K))[:n]
+
+    xe = (x.reshape(G * T, D).index_select(0, token_map) * valid[:, None]).reshape(E, G * C, D)
+    he = torch.bmm(xe, p.we_gate.to(x.dtype))
+    ue = torch.bmm(xe, p.we_up.to(x.dtype))
+    ye = torch.bmm(silu(he) * ue, p.we_down.to(x.dtype)).reshape(n, D)
+    gate = (gate_vals.reshape(G, T * K) * keep).to(x.dtype)
+    picked = ye.index_select(0, torch.where(keep, slot, 0).reshape(-1)).reshape(G, T * K, D)
+    y = (picked * gate[..., None]).reshape(G, T, K, D).sum(2)
+
+    # Stats: each expert's token load (the MoE demand matrix) and the aux loss.
+    load = counts.float()  # (G, E)
+    importance = probs.sum(1)
+    aux = E * torch.mean((load / torch.clamp(load.sum(-1, keepdim=True), min=1.0))
+                         * (importance / torch.clamp(importance.sum(-1, keepdim=True), min=1.0)), dim=-1)
+    return y, {"expert_load": load.sum(0), "aux_loss": (aux * m.router_aux_coef).mean()}
+
+
+class MoE(nn.Module):
+    """Pre-norm routed-expert FFN (+ shared experts) with residual
+    (``moe_init``/``moe_apply``). ``forward(x)`` → (y, stats).
+
+    Tokens are dispatched in one group per batch row when a row holds
+    S ≥ 4·E of them, else in one group of all B·S (decode).
+    """
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        m = cfg.moe
+        D, Fe, E = cfg.d_model, m.d_ff_expert, m.num_experts
+        kw = dict(dtype=dtype, device=device)
+        p = {
+            "norm1": zinit((D,), **kw),
+            "router": winit(gen, (D, E), **kw),
+            "we_gate": winit(gen, (E, D, Fe), **kw),  # fan-in shape[0] = E, as the reference's winit
+            "we_up": winit(gen, (E, D, Fe), **kw),
+            "we_down": winit(gen, (E, Fe, D), **kw),
+        }
+        if m.num_shared:
+            Fs = Fe * m.num_shared
+            p.update({
+                "ws_gate": winit(gen, (D, Fs), **kw),
+                "ws_up": winit(gen, (D, Fs), **kw),
+                "ws_down": winit(gen, (Fs, D), **kw),
+            })
+        _params(self, p)
+
+    def forward(self, x):
+        B, S, D = x.shape
+        m = self.cfg.moe
+        h = rms_norm(x, self.norm1, self.cfg.norm_eps)
+        groups = h if S >= 4 * m.num_experts else h.reshape(1, B * S, D)
+        y, stats = moe_ffn(self, groups, m)
+        y = y.reshape(B, S, D)
+        if m.num_shared:
+            y = y + dense(silu(dense(h, self.ws_gate)) * dense(h, self.ws_up), self.ws_down)
+        return x + y, stats
 
 
 # ---------------------------------------------------------------------------

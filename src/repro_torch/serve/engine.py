@@ -34,14 +34,15 @@ class DecodeEngine:
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, max_new_tokens: int, *, temperature: float = 0.0,
-                 seed: int = 0, keep_logits: bool = False) -> GenerationResult:
-        """prompts: (B, S0) int, the same length per batch."""
+                 seed: int = 0, keep_logits: bool = False, enc_out: torch.Tensor | None = None) -> GenerationResult:
+        """prompts: (B, S0) int, the same length per batch. ``enc_out`` is the
+        encoder's output for an encoder–decoder model (``LM.encode``)."""
         B, S0 = prompts.shape
         total = S0 + max_new_tokens
         if total > self.max_len:
             raise ValueError(f"{total} exceeds engine max_len {self.max_len}")
         dev = self.model.device
-        cache = self.model.init_cache(B, self.max_len)
+        cache = self.model.init_cache(B, self.max_len, enc_out=enc_out)
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int64, device=dev)
         kept = []
         logits = None

@@ -26,6 +26,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from ..data.pipeline import TokenStream
 from ..fabric.ocs import OCSFabric
@@ -69,7 +70,7 @@ def _demand_from_stats(num_racks: int, metrics: dict, step: int) -> np.ndarray |
     tm = TrafficModel(Placement(num_racks, 1))
     load = metrics.get("expert_load")
     if load is not None:
-        load = np.asarray(load, dtype=np.float64)
+        load = np.asarray(torch.as_tensor(load).cpu(), dtype=np.float64)  # one host read a tick
         if load.sum() <= 0:
             return None
         # Experts → racks round-robin; tokens to expert e land on its rack.

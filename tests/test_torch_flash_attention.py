@@ -71,3 +71,21 @@ def test_flash_attention_rejects_bad_input():
         flash_attention(q, q, q, window=0)
     with pytest.raises(TypeError):
         flash_attention(q, q.double(), q)
+
+
+def test_rows_without_a_key_are_zero_as_in_reference():
+    """Causal with Sq > Sk: the first Sq − Sk query rows see no key. The
+    reference's ``mha`` gives 0 there, and so does the port's CPU path, while
+    the plain ``mha_ref`` (the reference's ``mha_ref`` alike) gives the mean
+    of V; every other row agrees."""
+    q, k, v = _qkv(5, 1, 2, 2, 8, 4, 32)
+    want = np.asarray(jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                              impl="pallas", interpret=True))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = mha(tq, tk, tv, causal=True).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    assert (got[:, :, :4] == 0).all()
+    plain = mha_ref(tq, tk, tv, causal=True).numpy()
+    np.testing.assert_allclose(plain[:, :, :4], np.broadcast_to(v.mean(axis=2, keepdims=True), (1, 2, 4, 32)),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(plain[:, :, 4:], got[:, :, 4:], rtol=1e-6, atol=1e-6)

@@ -151,6 +151,11 @@ _ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     (1, 4, 2, 100, 357, 32, True, 50),      # D = 32, window, Sq < Sk
     (1, 8, 4, 400, 401, 128, True, None),   # D = 128, GQA, Sq < Sk
     (2, 4, 1, 1000, 1000, 64, True, 128),   # GQA 4:1, window across key tiles
+    (2, 32, 4, 2048, 2048, 128, True, None),  # qwen3-moe prefill, GQA 8:1
+    (2, 12, 2, 4096, 4096, 128, True, None),  # qwen2-vl, GQA 6:1
+    (4, 6, 6, 1500, 1500, 64, False, None),   # whisper encoder, Sk not a multiple of the key tile
+    (4, 6, 6, 448, 1500, 64, False, None),    # whisper cross-attention, Sq ≠ Sk
+    (4, 6, 6, 448, 448, 64, True, None),      # whisper decoder self-attention, a partial last key tile
 ])
 def test_flash_kernel_equals_plain(cuda, dtype, B, Hq, Hkv, Sq, Sk, D, causal, window):
     gen = torch.Generator(device=cuda).manual_seed(Sq)
@@ -287,3 +292,32 @@ def test_demand_accum_kernel_low_precision_weights(cuda):
     assert bool(((demand_accum(src, dst, w, n=64).double() - exact).abs() <= 1e-5 * mass + 1e-30).all())
     e = torch.zeros((0,), dtype=torch.int32, device=cuda)
     assert not demand_accum(e, e, torch.zeros((0,), device=cuda), n=8).any()
+
+
+# ---------------------------------------------------------------------------
+# The MoE dispatch on the card: the stable top-K and the per-row groups.
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.models.blocks import MoE, top_k_stable  # noqa: E402
+
+
+def test_top_k_stable_ties_on_the_card_equal_the_cpu(cuda):
+    probs = torch.from_numpy(np.random.default_rng(0).integers(0, 4, (4096, 128)).astype(np.float32))
+    want_v, want_i = top_k_stable(probs, 8)
+    got_v, got_i = top_k_stable(probs.to(cuda), 8)
+    assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_v.cpu(), want_v)
+
+
+@pytest.mark.parametrize("B,S", [(2, 64), (1, 16)])  # one group per row (S ≥ 4·E), one global group
+def test_moe_block_on_the_card_equals_the_cpu(cuda, B, S):
+    cfg = get_arch("qwen3-moe-30b-a3b").reduced()
+    cpu = MoE(cfg, torch.Generator().manual_seed(0))
+    gpu = MoE(cfg, torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(S).standard_normal((B, S, cfg.d_model), dtype=np.float32))
+    with torch.no_grad():
+        want, want_stats = cpu(x)
+        got, got_stats = gpu(x.to(cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(got_stats["expert_load"].cpu(), want_stats["expert_load"])

@@ -135,12 +135,6 @@ def test_sampling_is_seeded(zamba2):
     assert ((a >= 0) & (a < cfg.vocab_size)).all()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-tiny", "qwen2-vl-2b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(ARCHS[arch].reduced(), device="cpu")
-
-
 def test_concrete_inputs_come_from_the_numpy_seed():
     cfg = ARCHS["granite-3-8b"].reduced()
     tokens = concrete_inputs(cfg, ShapeCfg("t", 16, 3, "prefill"), seed=9, device="cpu")["tokens"]

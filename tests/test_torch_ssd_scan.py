@@ -19,7 +19,8 @@ from repro.kernels.ssd_scan.ops import _chunk_jnp, ssd_decode_step as jax_decode
 from repro.kernels.ssd_scan.ops import _pick_chunk as jax_pick_chunk, ssd_scan as jax_ssd_scan  # noqa: E402
 from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref, ssd_decode_step, ssd_ref, ssd_scan  # noqa: E402
-from repro_torch.kernels.ssd_scan.ops import _pick_chunk  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunked  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import BLOCK_CHUNKS, _cross_chunk, _pick_chunk  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -157,3 +158,74 @@ def test_bf16_split_emulation_meets_the_kernel_gate(L, N, P):
     y1, states1 = _chunk_split_emulation(xd, loga, B, C, L, split=False)
     assert not torch.allclose(y1, y_ref, **TOL) and not torch.allclose(states1.reshape(states_ref.shape),
                                                                         states_ref, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# The cross-chunk recurrence, in blocks of at most BLOCK_CHUNKS chunks.
+# ---------------------------------------------------------------------------
+
+def _closed_form_whole(states, la_end, h0):
+    """The recurrence's closed form over all nc chunks at once, with
+    (BH, nc + 1, nc) decays: the form the blocks replace."""
+    BH, nc, N, P = states.shape
+    lx = torch.cat([torch.zeros((BH, 1)), torch.cumsum(la_end, dim=-1)], dim=1)
+    diff = lx[:, :, None] - lx[:, None, 1:]
+    before = torch.tril(torch.ones((nc + 1, nc), dtype=torch.bool), diagonal=-1)
+    decay = torch.where(before, torch.exp(torch.clamp(diff, max=0.0)), 0.0)
+    H = (decay @ states.reshape(BH, nc, N * P)).reshape(BH, nc + 1, N, P)
+    return H + torch.exp(lx)[..., None, None] * h0[:, None]
+
+
+@pytest.mark.parametrize("nc", [1, 64, 65, 257])
+def test_blocked_recurrence_equals_sequential_loop(nc):
+    rng = np.random.default_rng(nc)
+    BH, N, P = 2, 4, 3
+    states = torch.from_numpy(rng.standard_normal((BH, nc, N, P), dtype=np.float32))
+    la_end = torch.from_numpy((-0.3 * rng.random((BH, nc))).astype(np.float32))
+    h0 = torch.from_numpy(rng.standard_normal((BH, N, P), dtype=np.float32))
+    got = _cross_chunk(states, la_end, h0)
+    want = [h0]
+    for c in range(nc):
+        want.append(torch.exp(la_end[:, c])[:, None, None] * want[-1] + states[:, c])
+    torch.testing.assert_close(got, torch.stack(want, 1), rtol=1e-5, atol=1e-5)
+    whole = _closed_form_whole(states, la_end, h0)
+    if nc <= BLOCK_CHUNKS:
+        assert torch.equal(got, whole)  # one block: the whole closed form, bit for bit
+    torch.testing.assert_close(got, whole, **TOL)
+
+
+@pytest.mark.parametrize("S", [4097, 130 * 64])
+def test_many_chunks_match_whole_closed_form_and_backward(S):
+    """S = 4097 runs 4097 chunks of 1 (65 blocks), S = 8320 runs 65 chunks
+    of 128: forward and ``ssd_chunked``'s backward equal the whole closed
+    form's to 1e-4."""
+    import repro_torch.kernels.ssd_scan.ops as ops
+
+    args = _inputs(S, 1, S, 4, 4, with_h0=True)
+    gy = np.random.default_rng(1).standard_normal((1, S, 4)).astype(np.float32)
+    outs = []
+    for cross in (ops._cross_chunk, _closed_form_whole):
+        saved, ops._cross_chunk = ops._cross_chunk, cross
+        try:
+            ts = [torch.from_numpy(a).requires_grad_() for a in args]
+            y, hT = ssd_chunked(*ts)
+            grads = torch.autograd.grad((y * torch.from_numpy(gy)).sum() + (hT ** 2).sum(), ts)
+        finally:
+            ops._cross_chunk = saved
+        outs.append((y.detach(), hT.detach(), grads))
+    (y, hT, g), (y_w, hT_w, g_w) = outs
+    torch.testing.assert_close(y, y_w, **TOL)
+    torch.testing.assert_close(hT, hT_w, **TOL)
+    for a, b in zip(g, g_w):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+def test_odd_length_scan_matches_reference():
+    """S = 4097 picks chunk 1 on both sides: the port's blocked recurrence
+    against the reference's exact sequential scan (its ``impl="reference"``)."""
+    args = _inputs(11, 1, 4097, 4, 4, with_h0=True)
+    assert _pick_chunk(4097) == jax_pick_chunk(4097) == 1
+    y_j, h_j = jax_ssd_scan(*map(_j, args), impl="reference")
+    y, hT = ssd_scan(*map(_t, args))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(h_j), **TOL)

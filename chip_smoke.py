@@ -31,6 +31,20 @@
    port's plain CPU path to 1e-4. One more run of the permutations bucket
    times every ``auction_fused`` call with CUDA events, splitting the
    bucket's wall into the kernel and the rest.
+   Then the solver layer. ``match_auction`` / ``match_auction_fr`` above
+   n = 128 (the round loop, one ``masked_row_top2`` launch a round) at
+   (2, 160) and (2, 256), bit for bit against the CPU's plain path; then,
+   with the counters set to 0 just before: Fig. 2 through every registered
+   solver, each covering schedule replayed by ``fabric.simulator``; the
+   paper's comparison (gpt n=32, moe n=64, benchmark n=100; s in {2, 4};
+   seven δs) over ``spectra``, ``spectra_torch``, ``Pipeline(decompose=
+   "torch_auction", equalize="torch")`` on the card (held to the same
+   pipeline on the CPU to 1e-4), ``spectra_eclipse``, ``baseline_less``,
+   ``spectra_pp`` and the bound, with the Fig. 6 / Fig. 9 ratios;
+   ``torch_auction`` at n = 256 (default matcher: ``masked_row_top2``) and at
+   n = 512 (``auction_fused``); and the permutations bucket under the span
+   tracer with ``device_sync``, its span totals printed and its Chrome
+   trace written to the temp dir. All three auction kernels must launch.
 3. Holds zamba2-1.2b at full width and 7 layers (one group and the
    remainder) in float32 against the port's plain CPU path, with the same
    weights (through ``interop.params_from_reference``).
@@ -78,8 +92,8 @@
 9. whisper-tiny at full depth, B = 4, 1500 frames, 448 tokens: float32
    parity, decode with ``enc_out`` teacher-forced against the forward to
    1e-3; the bf16 forward (12 flash launches) and decode.
-10. Prints one ``{"kernels": [...]}`` line (``flash_attention``'s launches
-   split by path) and, last, the ``{"ok": true, "device": {...}}`` line.
+10. Prints one ``{"kernels": [...]}`` line (launches split by path for
+   the auction kernels and ``flash_attention``) and, last, the ``{"ok": true, "device": {...}}`` line.
    Any failed check exits non-zero.
 
 Without a CUDA device, or without the repository beside it, it fails.
@@ -182,14 +196,17 @@ def phase_bid(rng) -> dict:
 
     dev = "cuda"
     max_err = 0.0
-    for B, n in [(8, 32), (8, 64), (8, 100), (4, 128)]:
+    for B, n in [(8, 32), (8, 64), (8, 100), (4, 128), (4, 160), (4, 256), (4, 512)]:
+        # The widths the round loop serves above 128 draw from their
+        # own stream, so the earlier shapes and phases keep their inputs.
+        r = rng if n <= 128 else np.random.default_rng([17, n])
         for kind in ("random", "ties"):
             if kind == "random":
-                W = torch.from_numpy(rng.random((B, n, n), dtype=np.float32)).to(dev)
-                p = torch.from_numpy(rng.random((B, n), dtype=np.float32)).to(dev)
+                W = torch.from_numpy(r.random((B, n, n), dtype=np.float32)).to(dev)
+                p = torch.from_numpy(r.random((B, n), dtype=np.float32)).to(dev)
             else:
-                W = torch.from_numpy(rng.integers(0, 3, (B, n, n)).astype(np.float32)).to(dev)
-                p = torch.from_numpy(rng.integers(0, 2, (B, n)).astype(np.float32)).to(dev)
+                W = torch.from_numpy(r.integers(0, 3, (B, n, n)).astype(np.float32)).to(dev)
+                p = torch.from_numpy(r.integers(0, 2, (B, n)).astype(np.float32)).to(dev)
             for name, Wx in (("W", W), ("W.T", W.transpose(1, 2).contiguous())):
                 got = masked_row_top2(Wx, p)
                 want = masked_row_top2_ref(Wx, p)
@@ -197,12 +214,14 @@ def phase_bid(rng) -> dict:
                 for g, w in zip(got, want):
                     check(torch.equal(g, w), f"auction_bid {kind} {name} B={B} n={n} differs from its plain version")
                 max_err = max(max_err, float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
-    print(f"auction_bid: kernel == plain version exactly at (B, n) in (8,32) (8,64) (8,100) (4,128), random and tie-rich, W and W.T")
+    print(f"auction_bid: kernel == plain version exactly at (B, n) in (8,32) (8,64) (8,100) (4,128) (4,160) (4,256) "
+          f"(4,512), random and tie-rich, W and W.T")
 
     shapes = []
-    for B, n in [(8, 32), (8, 64), (8, 100)]:
-        W = torch.from_numpy(rng.random((B, n, n), dtype=np.float32)).to(dev)
-        p = torch.from_numpy(rng.random((B, n), dtype=np.float32)).to(dev)
+    for B, n in [(8, 32), (8, 64), (8, 100), (4, 512)]:
+        r = rng if n <= 128 else np.random.default_rng([17, n])
+        W = torch.from_numpy(r.random((B, n, n), dtype=np.float32)).to(dev)
+        p = torch.from_numpy(r.random((B, n), dtype=np.float32)).to(dev)
         ms = graph_ms(lambda: masked_row_top2(W, p), 100)
         plain_ms = graph_ms(lambda: masked_row_top2_ref(W, p), 100)
         lib_ms = graph_ms(lambda: torch.topk(W - p[:, None, :], 2, dim=-1), 100)
@@ -1319,6 +1338,249 @@ def phase_main_path(seed: int) -> dict:
     return launches
 
 
+# Fig. 2's worked example (.claude/skills/verify/SKILL.md: spectra gives 0.5300).
+FIG2 = np.array([
+    [0.60, 0.30, 0.00, 0.10],
+    [0.00, 0.61, 0.39, 0.00],
+    [0.00, 0.09, 0.61, 0.30],
+    [0.40, 0.00, 0.00, 0.60],
+])
+PAPER_DELTAS = [1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1]  # the δ grid of benchmarks/common.py
+
+
+def geomean(xs) -> float:
+    """Geometric mean: the "average" ratio the paper's figures report."""
+    return float(np.exp(np.mean(np.log(xs))))
+
+
+def phase_matchers_above_128(rng) -> list[dict]:
+    """``match_auction`` and ``match_auction_fr`` above n = 128, where a call
+    is the round loop with one ``masked_row_top2`` launch a round: at
+    (B, n) = (2, 160) on permutations + M-bonus weights and (2, 256) on
+    uniform weights, on the card and on the CPU's plain path, bit for bit in
+    perm, converged, prices and rounds. Prints the rounds, the launches and
+    the wall a call (host clock, synchronised)."""
+    from repro_torch.core.torchopt.matching import MatchResult, match_auction, match_auction_fr
+    from repro_torch.kernels.auction_bid import masked_row_top2
+    from repro_torch.traffic import permutations_workload
+
+    rows = []
+    for B, n, kind in ((2, 160, "bonus"), (2, 256, "uniform")):
+        if kind == "bonus":
+            D = np.stack([permutations_workload(n=n, k=16, rng=rng) for _ in range(B)])
+            W = bonus_weights(torch.from_numpy(D.astype(np.float32)))
+        else:
+            W = torch.from_numpy(rng.random((B, n, n), dtype=np.float32))
+        Wd = W.cuda()
+        for match in (match_auction, match_auction_fr):
+            before = masked_row_top2.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = match(Wd)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = masked_row_top2.launches - before
+            t0 = time.perf_counter()
+            want = match(W)
+            cpu_s = time.perf_counter() - t0
+            for field, g, w in zip(MatchResult._fields, got, want):
+                check(torch.equal(g.cpu(), w), f"{match.__name__} B={B} n={n} {kind}: {field} on the card differs "
+                                               f"from the CPU's plain path")
+            rounds = got.rounds.tolist()
+            check(bool(got.converged.all()) and launches >= max(rounds) > 0,
+                  f"{match.__name__} B={B} n={n}: converged {got.converged.tolist()}, rounds {rounds}, "
+                  f"masked_row_top2 launches {launches}")
+            rows.append(dict(matcher=match.__name__, shape=[B, n, n], weights=kind, rounds=rounds,
+                             launches=launches, wall_ms=wall_ms, cpu_s=cpu_s))
+            print(f"{match.__name__} B={B} n={n} ({kind} weights): card == CPU plain path exactly (perm, converged, "
+                  f"prices, rounds); rounds {rounds}, masked_row_top2 launches {launches}, wall {wall_ms:.1f} ms "
+                  f"({wall_ms * 1e3 / max(launches, 1):.1f} us a launch); CPU {cpu_s:.1f} s")
+    return rows
+
+
+def phase_solver_layer(seed: int) -> dict:
+    """The solver layer of the port on the card, through the API a user calls:
+
+    1. Fig. 2 through every registered solver (``solve_all``; ``spectra_torch``
+       on the card): every covering schedule replayed by
+       ``fabric.simulator.simulate`` serves the demand (``rotor_vlb`` covers
+       only under indirection and is skipped, as in the reference), and
+       ``spectra`` gives 0.5300.
+    2. The paper's comparison on gpt n=32, moe n=64 and benchmark n=100 (one
+       seed), s ∈ {2, 4}, the seven δs of ``benchmarks/common.py``: columns
+       ``spectra``, ``spectra_torch`` (card), ``Pipeline(decompose=
+       "torch_auction", equalize="torch")`` (card), ``spectra_eclipse``,
+       ``baseline_less``, ``spectra_pp`` and the §IV bound, and the
+       geometric-mean ratios of Fig. 6 / Fig. 9. Every device-stage report
+       must equal the same pipeline on the CPU's plain path to 1e-4 relative;
+       the CPU side computes each matrix's decomposition once (it depends on
+       D alone, through a registered stage) and reruns SCHEDULE and EQUALIZE
+       per cell.
+    3. ``torch_auction`` at n = 256 with its default ``matcher="auction"``: the
+       round loop, ``masked_row_top2`` a round.
+    4. ``torch_auction`` at n = 512 with ``matcher="auction_fused"``.
+    5. The permutations bucket (n = 512, B = 4) through ``solve_many`` under
+       the tracer with ``device_sync``: span totals by name, and the Chrome
+       trace written to the temp dir.
+
+    The kernels' launch counters are set to 0 just before and read just
+    after; every auction kernel must have launched. Host solvers run on the
+    card machine's CPU."""
+    import tempfile
+
+    from repro_torch.api import Pipeline, Problem, SolveOptions, list_solvers, register_stage, solve, solve_all
+    from repro_torch.api import solve_many
+    from repro_torch.api.pipeline import DECOMPOSERS
+    from repro_torch.core.lower_bounds import lower_bound
+    from repro_torch.fabric import simulate
+    from repro_torch.kernels.auction_bid import auction_rounds, masked_row_top2
+    from repro_torch.kernels.auction_fused import fused_auction
+    from repro_torch.obs import get_tracer
+    from repro_torch.traffic import benchmark_workload, gpt3b_workload, moe_workload, permutations_workload
+
+    cpu = SolveOptions(extra={"device": "cpu"})
+    device_pipe = Pipeline(decompose="torch_auction", equalize="torch")
+    cpu_decs: dict[bytes, object] = {}
+
+    def memo_decompose(problem, **kw):  # the CPU's torch_auction, once a matrix
+        key = np.ascontiguousarray(problem.D).tobytes()
+        if key not in cpu_decs:
+            cpu_decs[key] = DECOMPOSERS["torch_auction"](problem, **kw)
+        return cpu_decs[key]
+
+    register_stage("decompose", "torch_auction_cpu_once", memo_decompose, overwrite=True)
+    cpu_pipe = Pipeline(decompose="torch_auction_cpu_once", equalize="torch")
+
+    masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = 0
+    fused_auction.cluster_launches = 0
+    t_phase = time.perf_counter()
+
+    t0 = time.perf_counter()
+    reports = solve_all(Problem(FIG2, 2, 0.01))
+    check(sorted(reports) == list_solvers(), f"solve_all gave {sorted(reports)}")
+    for name, rep in reports.items():
+        if name == "rotor_vlb":
+            check(not rep.validated, "rotor_vlb validated against Eq. 3")
+            continue
+        sim = simulate(rep, FIG2, tol=SolveOptions().tol(rep.backend))
+        check(rep.validated and sim.demand_met and abs(sim.finish_time - rep.makespan) <= 1e-6,
+              f"Fig. 2 {name}: simulated finish {sim.finish_time} vs makespan {rep.makespan}, served {sim.demand_met}")
+    check(abs(reports["spectra"].makespan - 0.53) <= 5e-5, f"Fig. 2 spectra makespan {reports['spectra'].makespan}")
+    print("Fig. 2 (s=2, δ=0.01) through every solver, simulated: " + ", ".join(
+        f"{name} {rep.makespan:.4f} ({rep.num_configs} configs, {rep.backend})" for name, rep in reports.items())
+        + f"; LB {reports['spectra'].lower_bound:.4f} ({(time.perf_counter() - t0) * 1e3:.0f} ms)")
+
+    columns = ("spectra", "spectra_torch", "torch_pipeline", "spectra_eclipse", "baseline_less", "spectra_pp")
+    mats = {"gpt": gpt3b_workload(rng=np.random.default_rng(seed)),
+            "moe": moe_workload(rng=np.random.default_rng(seed)),
+            "benchmark": benchmark_workload(rng=np.random.default_rng(seed))}
+    no_lb = SolveOptions(compute_lb=False)
+    ratios, walls = {}, {c: 0.0 for c in (*columns, "cpu_check")}
+    worst = 0.0
+    for wname, D in mats.items():
+        rows = []
+        for s in (2, 4):
+            for delta in PAPER_DELTAS:
+                problem = Problem(D, s, delta)
+                row = {"lb": lower_bound(D, s, delta)}
+                for col in columns:
+                    t0 = time.perf_counter()
+                    rep = device_pipe(problem, no_lb) if col == "torch_pipeline" else solve(problem, solver=col,
+                                                                                          options=no_lb)
+                    if col in ("spectra_torch", "torch_pipeline"):
+                        torch.cuda.synchronize()
+                        check(rep.backend == "torch", f"{col} ran on {rep.backend}")
+                    walls[col] += time.perf_counter() - t0
+                    check(rep.validated, f"{wname} s={s} δ={delta} {col} not validated")
+                    row[col] = rep.makespan
+                t0 = time.perf_counter()
+                want = cpu_pipe(problem, SolveOptions(compute_lb=False, extra={"device": "cpu"})).makespan
+                walls["cpu_check"] += time.perf_counter() - t0
+                rel = abs(row["torch_pipeline"] - want) / want
+                worst = max(worst, rel)
+                check(rel <= 1e-4, f"{wname} s={s} δ={delta}: torch_auction → torch on the card {row['torch_pipeline']}"
+                                   f" vs the CPU's {want}")
+                rows.append(row)
+        ratios[wname] = {
+            "baseline/spectra": geomean([r["baseline_less"] / r["spectra"] for r in rows]),
+            "eclipse/spectra": geomean([r["spectra_eclipse"] / r["spectra"] for r in rows]),
+            "spectra/lb": geomean([r["spectra"] / r["lb"] for r in rows]),
+            "spectra_torch/spectra": geomean([r["spectra_torch"] / r["spectra"] for r in rows]),
+            "torch_pipeline/spectra": geomean([r["torch_pipeline"] / r["spectra"] for r in rows]),
+            "spectra_pp/spectra": geomean([r["spectra_pp"] / r["spectra"] for r in rows]),
+        }
+        print(f"paper comparison {wname} n={D.shape[0]} (s in (2, 4), {len(PAPER_DELTAS)} deltas, seed {seed}): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ratios[wname].items()))
+    cells = len(mats) * 2 * len(PAPER_DELTAS)
+    print(f"paper comparison: {cells} cells; walls summed over them (host clock; host solvers on this machine's CPU): "
+          + ", ".join(f"{c} {walls[c]:.2f} s" for c in columns)
+          + f"; CPU check of the device stages {walls['cpu_check']:.2f} s (decompositions once a matrix); "
+          f"device pipeline vs CPU max relative difference {worst:.3g}")
+
+    D256 = permutations_workload(n=256, k=4, rng=np.random.default_rng(seed))
+    before = masked_row_top2.launches, auction_rounds.launches, fused_auction.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep256 = device_pipe(Problem(D256, 4, 0.01))
+    torch.cuda.synchronize()
+    wall256 = (time.perf_counter() - t0) * 1e3
+    got = (masked_row_top2.launches - before[0], auction_rounds.launches - before[1],
+           fused_auction.launches - before[2])
+    sim = simulate(rep256, D256, tol=1e-4)
+    check(got[0] > 0 and got[1:] == (0, 0) and rep256.validated and sim.demand_met,
+          f"torch_auction n=256: launches bid/rounds/fused {got}, validated {rep256.validated}, served {sim.demand_met}")
+    host256 = solve(Problem(D256, 4, 0.01), solver="spectra")
+    print(f"torch_auction (matcher auction) -> torch, permutations n=256 k=4: wall {wall256:.1f} ms, masked_row_top2 "
+          f"launches {got[0]}, k={rep256.decomposition.k}, makespan {rep256.makespan:.6f} (host spectra "
+          f"{host256.makespan:.6f}, LB {rep256.lower_bound:.6f}), simulated")
+
+    D512 = permutations_workload(n=512, k=16, rng=np.random.default_rng(seed))
+    before = masked_row_top2.launches, fused_auction.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep512 = Pipeline(decompose="torch_auction", decompose_kwargs={"matcher": "auction_fused"},
+                      equalize="torch")(Problem(D512, 4, 0.01))
+    torch.cuda.synchronize()
+    wall512 = (time.perf_counter() - t0) * 1e3
+    fused512 = fused_auction.launches - before[1]
+    sim = simulate(rep512, D512, tol=1e-4)
+    check(fused512 > 0 and masked_row_top2.launches == before[0] and rep512.validated and sim.demand_met,
+          f"torch_auction n=512 auction_fused: fused launches {fused512}, served {sim.demand_met}")
+    print(f"torch_auction (matcher auction_fused) -> torch, permutations n=512 k=16: wall {wall512:.1f} ms, "
+          f"auction_fused launches {fused512}, k={rep512.decomposition.k}, makespan {rep512.makespan:.6f} "
+          f"(LB {rep512.lower_bound:.6f}), simulated")
+
+    Ds = buckets(seed)[-1][2]
+    tracer = get_tracer()
+    tracer.reset()
+    tracer.enable(device_sync=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traced = solve_many(Ds, 4, 0.01)
+        torch.cuda.synchronize()
+        traced_wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        tracer.disable()
+    check(all(r.validated for r in traced), "traced bucket: a report did not validate")
+    totals: dict[str, float] = {}
+    for ev in tracer.spans():
+        totals[ev.name] = totals.get(ev.name, 0.0) + ev.duration * 1e3
+    check(set(totals) == {"solve_many", "bucket", "torch.dispatch", "torch.collect"}, f"spans {sorted(totals)}")
+    trace_path = tracer.save(Path(tempfile.gettempdir()) / "repro_torch_solver_trace.json")
+    tracer.reset()
+    print(f"traced permutations bucket n=512 B={len(Ds)} (device_sync): wall {traced_wall:.1f} ms; span totals "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in totals.items()) + f"; Chrome trace {trace_path}")
+
+    launches = {"auction_bid": masked_row_top2.launches, "auction_rounds": auction_rounds.launches,
+                "auction_fused": fused_auction.launches, "auction_fused_cluster": fused_auction.cluster_launches}
+    check(all(launches[k] > 0 for k in ("auction_bid", "auction_rounds", "auction_fused")),
+          f"solver layer launches {launches}")
+    print(f"solver layer: {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return dict(launches=launches, ratios=ratios, walls_s=walls, worst_rel=worst, wall256_ms=wall256,
+                wall512_ms=wall512, traced_wall_ms=traced_wall, span_ms=totals)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1358,6 +1620,10 @@ def main() -> None:
     check(launches["auction_rounds"] > 0 and launches["auction_fused"] > 0 and launches["auction_bid"] == 0,
           f"main path launches {launches}")
     t0 = time.perf_counter()
+    above = phase_matchers_above_128(np.random.default_rng([17, args.seed]))
+    layer = phase_solver_layer(args.seed)
+    print(f"matcher and solver layer phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_model_parity(args.seed)
     launches.update(phase_zamba2(args.seed))
     print(f"LM phases: {time.perf_counter() - t0:.1f} s")
@@ -1377,22 +1643,30 @@ def main() -> None:
     print(f"VLM and audio phases: {time.perf_counter() - t0:.1f} s")
     launches["demand_accum"] = demand_accum.launches
 
-    bid_main = bid["shapes"][1]  # (8, 64): the moe bucket's shape
+    bid_main = bid["shapes"][3]  # (4, 512): the widest the round loop serves on the solver layer's path
+    by_layer = layer["launches"]
+
+    def paths(key: str) -> dict:
+        return {"solver_buckets": launches[key], "solver_layer": by_layer[key]}
+
     kernels = [
         dict(name="auction_bid", route="cuda", source="src/repro_torch/csrc/auction_bid.cu",
-             replaces="src/repro/kernels/auction_bid/kernel.py:22", launches=launches["auction_bid"],
+             replaces="src/repro/kernels/auction_bid/kernel.py:22",
+             launches=launches["auction_bid"] + by_layer["auction_bid"], launches_by_path=paths("auction_bid"),
              max_abs_err=bid["max_abs_err"], ms=bid_main["ms"], plain_ms=bid_main["plain_ms"],
              bound_ms=bid_main["bound_ms"], bound_by=bid_main["bound_by"], library_ms=bid_main["library_ms"],
-             shape=bid_main["shape"], shapes=bid["shapes"]),
+             shape=bid_main["shape"], shapes=bid["shapes"], matchers_above_128=above),
         dict(name="auction_rounds", route="cuda", source="src/repro_torch/csrc/auction_rounds.cu",
-             replaces="src/repro/kernels/auction_bid/kernel.py:22", launches=launches["auction_rounds"],
+             replaces="src/repro/kernels/auction_bid/kernel.py:22",
+             launches=launches["auction_rounds"] + by_layer["auction_rounds"], launches_by_path=paths("auction_rounds"),
              max_abs_err=rounds["max_abs_err"], ms=rounds["ms"], plain_ms=rounds["plain_ms"],
              bound_ms=rounds["bound_ms"], bound_by=rounds["bound_by"], library_ms=None,
              shape=rounds["shape"], rounds=rounds["rounds"], bids=rounds["bids"],
              matcher_call_ms=rounds["matcher_call_ms"]),
         dict(name="auction_fused", route="cuda", source="src/repro_torch/csrc/auction_fused.cu",
-             replaces="src/repro/kernels/auction_fused/kernel.py:55", launches=launches["auction_fused"],
-             cluster_launches=launches["auction_fused_cluster"],
+             replaces="src/repro/kernels/auction_fused/kernel.py:55",
+             launches=launches["auction_fused"] + by_layer["auction_fused"], launches_by_path=paths("auction_fused"),
+             cluster_launches=launches["auction_fused_cluster"] + by_layer["auction_fused_cluster"],
              max_abs_err=fused["max_abs_err"], ms=fused["ms"], plain_ms=fused["plain_ms"],
              bound_ms=fused["bound_ms"], bound_by=fused["bound_by"], library_ms=None,
              shape=fused["shape"], kernel=fused["kernel"], us_per_round=fused["us_per_round"],

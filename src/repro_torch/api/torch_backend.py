@@ -25,6 +25,7 @@ from ..core.schedule_ir import DeviceSchedule, LazySchedule, ir_to_schedule
 from ..core.torchopt.e2e import E2EResult, spectra_torch_e2e_many
 from ..core.torchopt.matching import default_matcher
 from ..kernels.backend import resolve_device
+from ..obs.trace import get_tracer
 from .problem import Problem, SolveOptions, SolveReport, finish_report
 
 
@@ -234,22 +235,25 @@ class PendingBatch:
         return True if self._event is None else bool(self._event.query())
 
     def collect(self) -> list[SolveReport]:
-        """Wait for the device results and build the reports. Idempotent:
-        repeated calls return the same list."""
+        """Wait for the device results and build the reports, inside a
+        ``torch.collect`` span. Idempotent: repeated calls return the same
+        list."""
         if self._reports is None:
-            batch = _HostBatch(self._res, self._deltas, **self._kwargs)
-            device_s = time.perf_counter() - self._t0
-            B = len(self)
-            self._reports = [
-                batch.report(
-                    b,
-                    Problem(self._mats[b], self._s, float(self._deltas[b])),
-                    self._options,
-                    device_s / B,
-                    extras={"batched": True, "batch_size": B, "fused": True},
-                )
-                for b in range(B)
-            ]
+            tracer = get_tracer()
+            with tracer.span("torch.collect", {"B": len(self)} if tracer.enabled else None):
+                batch = _HostBatch(self._res, self._deltas, **self._kwargs)
+                device_s = time.perf_counter() - self._t0
+                B = len(self)
+                self._reports = [
+                    batch.report(
+                        b,
+                        Problem(self._mats[b], self._s, float(self._deltas[b])),
+                        self._options,
+                        device_s / B,
+                        extras={"batched": True, "batch_size": B, "fused": True},
+                    )
+                    for b in range(B)
+                ]
         return self._reports
 
 
@@ -257,18 +261,27 @@ def dispatch_many_torch(Ds, s: int, delta, options: SolveOptions) -> PendingBatc
     """Run one fused batched solve and return before copying results back.
 
     Only the device input is float32; reports validate against the caller's
-    float64 matrices. ``delta`` is a scalar or a (B,) vector.
+    float64 matrices. ``delta`` is a scalar or a (B,) vector. The call runs
+    inside a ``torch.dispatch`` span; with the tracer's ``device_sync`` it
+    synchronises the device inside that span, so the device time lands there.
     """
     mats = np.asarray(Ds, dtype=np.float64)
     B = mats.shape[0]
     deltas = np.broadcast_to(np.asarray(delta, dtype=np.float64), (B,))
     kwargs = _e2e_kwargs(options, int(mats.shape[-1]))
+    tracer = get_tracer()
     t0 = time.perf_counter()
-    res = spectra_torch_e2e_many(
-        mats.astype(np.float32), s, deltas.astype(np.float32), **kwargs
-    )
+    with tracer.span(
+        "torch.dispatch", {"B": B, "n": int(mats.shape[-1]), "s": int(s)} if tracer.enabled else None
+    ):
+        res = spectra_torch_e2e_many(
+            mats.astype(np.float32), s, deltas.astype(np.float32), **kwargs
+        )
+        on_cuda = kwargs["device"].type == "cuda"
+        if on_cuda and tracer.enabled and tracer.device_sync:
+            torch.cuda.synchronize(kwargs["device"])
     event = None
-    if kwargs["device"].type == "cuda":
+    if on_cuda:
         event = torch.cuda.Event()
         event.record()
     return PendingBatch(res, mats, s, deltas, options, kwargs, t0, event)

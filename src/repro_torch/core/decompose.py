@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..obs.trace import span as _span
 from .matching import mwm_node_coverage
 
 
@@ -139,7 +140,8 @@ def decompose(
     dec = Decomposition()
     k0 = degree(D)
     while S_rem.any():
-        perm = mwm_node_coverage(D_rem, S_rem, validate=validate)
+        with _span("matcher"):
+            perm = mwm_node_coverage(D_rem, S_rem, validate=validate)
         newly = S_rem[rows, perm]
         if alpha_mode == "covered_support":
             vals = D_rem[rows, perm][newly]

@@ -1,6 +1,6 @@
 """Dense, fixed-shape schedule table shared by the device and host paths.
 
-A copy of the parts of ``repro.core.schedule_ir`` the port uses.
+A copy of ``repro.core.schedule_ir``.
 ``DeviceSchedule`` is the array-of-slots mirror of ``ParallelSchedule``;
 in the port its fields are batched tensors (a leading lane dimension) on
 the device, or one lane's numpy arrays on the host:
@@ -41,6 +41,35 @@ class DeviceSchedule(NamedTuple):
         return int(self.perms.shape[-1])
 
 
+def schedule_to_ir(
+    sched: ParallelSchedule, n: int, *, capacity: int | None = None
+) -> DeviceSchedule:
+    """Flatten a host ``ParallelSchedule`` into a packed ``DeviceSchedule``.
+
+    ``capacity`` defaults to ``num_configs + n + 64`` so the IR ships usable
+    headroom for device EQUALIZE splits.
+    """
+    slots = [
+        (np.asarray(perm), float(a), h)
+        for h, sw in enumerate(sched.switches)
+        for perm, a in zip(sw.perms, sw.alphas)
+    ]
+    if capacity is None:
+        capacity = len(slots) + n + 64
+    if capacity < len(slots):
+        raise ValueError(f"capacity {capacity} < {len(slots)} live slots")
+    perms = np.broadcast_to(np.arange(n, dtype=np.int32), (capacity, n)).copy()
+    alphas = np.zeros((capacity,), dtype=np.float64)
+    switch = np.full((capacity,), -1, dtype=np.int32)
+    for r, (perm, a, h) in enumerate(slots):
+        perms[r] = perm
+        alphas[r] = a
+        switch[r] = h
+    return DeviceSchedule(
+        perms=perms, alphas=alphas, switch=switch, delta=float(sched.delta)
+    )
+
+
 def ir_to_schedule(ds: DeviceSchedule, s: int) -> ParallelSchedule:
     """Materialize a host ``ParallelSchedule`` from one lane's numpy arrays."""
     perms = np.asarray(ds.perms)
@@ -54,6 +83,37 @@ def ir_to_schedule(ds: DeviceSchedule, s: int) -> ParallelSchedule:
         switches[h].perms.append(perms[r].astype(np.int64))
         switches[h].alphas.append(float(alphas[r]))
     return ParallelSchedule(switches=switches, delta=float(ds.delta))
+
+
+def ir_loads(ds: DeviceSchedule, s: int) -> np.ndarray:
+    """Per-switch loads (Σα + δ·configs) computed directly on the slot table."""
+    alphas = np.asarray(ds.alphas, dtype=np.float64)
+    switch = np.asarray(ds.switch)
+    live = switch >= 0
+    loads = np.zeros((s,), dtype=np.float64)
+    np.add.at(loads, switch[live], alphas[live] + float(ds.delta))
+    return loads
+
+
+def ir_makespan(ds: DeviceSchedule, s: int) -> float:
+    return float(ir_loads(ds, s).max()) if s else 0.0
+
+
+def ir_num_configs(ds: DeviceSchedule) -> int:
+    return int((np.asarray(ds.switch) >= 0).sum())
+
+
+def ir_coverage(ds: DeviceSchedule) -> np.ndarray:
+    """Σ α_r · P_r over live slots — the Eq. 3 left-hand side."""
+    perms = np.asarray(ds.perms)
+    alphas = np.asarray(ds.alphas, dtype=np.float64)
+    switch = np.asarray(ds.switch)
+    n = perms.shape[-1]
+    out = np.zeros((n, n), dtype=np.float64)
+    rows = np.arange(n)
+    for r in np.flatnonzero(switch >= 0):
+        out[rows, perms[r]] += alphas[r]
+    return out
 
 
 class LazySchedule(ParallelSchedule):

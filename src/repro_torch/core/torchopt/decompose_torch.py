@@ -18,8 +18,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..decompose import Decomposition
 from .matching import get_matcher
 
 
@@ -162,6 +164,21 @@ def decompose(
     if repair_rounds:
         perms, alphas, k = _repair(D, perms, alphas, k, repair_rounds)
     return TorchDecomposition(perms, alphas, k, conv, rounds)
+
+
+def to_decomposition(dec: TorchDecomposition, lane: int = 0) -> Decomposition:
+    """One lane as a host ``Decomposition`` (for the host SCHEDULE and
+    EQUALIZE stages), read from the device once. Zero-α rounds (possible
+    after repair) are dropped: they carry no weight and would only add
+    δ-cost configurations to a host schedule."""
+    k = int(dec.k[lane])
+    perms = dec.perms[lane, :k].cpu().numpy()
+    alphas = dec.alphas[lane, :k].cpu().numpy()
+    keep = alphas > 0
+    return Decomposition(
+        perms=[p.astype(np.int64) for p, kp in zip(perms, keep) if kp],
+        alphas=[float(a) for a, kp in zip(alphas, keep) if kp],
+    )
 
 
 def lpt_schedule(dec: TorchDecomposition, s: int, delta: torch.Tensor):

@@ -6,13 +6,17 @@ loaded switch into a free slot on the least loaded one (or, with
 ``merge_aware``, into an identical permutation already there), until the
 spread is at most δ, the longest slot is too short to split, or the table
 runs out of free slots. A lane that stops is never updated again.
+``equalize_torch`` takes a host ``ParallelSchedule`` through it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..schedule_ir import DeviceSchedule
+from ...kernels.backend import resolve_device
+from ..equalize import equalize
+from ..schedule import ParallelSchedule
+from ..schedule_ir import DeviceSchedule, ir_to_schedule, schedule_to_ir
 
 
 def _canonical_ids(perms: torch.Tensor) -> torch.Tensor:
@@ -132,3 +136,51 @@ def equalize_ir(
         done = done | (active & stop)
         exhausted = exhausted | (active & out_of_slots)
     return DeviceSchedule(perms, alphas, switch, delta), exhausted
+
+
+def equalize_torch(
+    sched: ParallelSchedule,
+    n: int | None = None,
+    *,
+    merge_aware: bool = False,
+    extra_slots: int = 64,
+    max_iters: int | None = None,
+    device: str | torch.device | None = None,
+) -> ParallelSchedule:
+    """Host ``ParallelSchedule`` → one lane of ``equalize_ir`` on ``device``
+    → ``ParallelSchedule``; the counterpart of the reference's
+    ``equalize_jax`` (the ``torch`` EQUALIZE stage).
+
+    ``n`` defaults to the size of the first permutation; ``device=None``
+    means CUDA and raises without a GPU. The slot table holds the live
+    slots plus ``extra_slots``, rounded up to a multiple of 64. If it runs
+    out of split headroom and ``max_iters`` is None, host EQUALIZE finishes
+    the job from where the device stopped (Alg. 4 is an iterative
+    improvement loop).
+    """
+    s = sched.s
+    if n is None:
+        for sw in sched.switches:
+            if sw.perms:
+                n = len(sw.perms[0])
+                break
+        else:
+            return sched  # nothing scheduled anywhere
+    capacity = -(-(sched.num_configs() + extra_slots) // 64) * 64
+    ds = schedule_to_ir(sched, n, capacity=capacity)
+    dev = resolve_device(device)
+    out, exhausted = equalize_ir(
+        DeviceSchedule(
+            perms=torch.as_tensor(ds.perms, dtype=torch.int64, device=dev)[None],
+            alphas=torch.as_tensor(ds.alphas, dtype=torch.float32, device=dev)[None],
+            switch=torch.as_tensor(ds.switch, dtype=torch.int64, device=dev)[None],
+            delta=torch.tensor([ds.delta], dtype=torch.float32, device=dev),
+        ),
+        s, merge_aware=merge_aware, max_iters=max_iters,
+    )
+    result = ir_to_schedule(
+        DeviceSchedule(*(x[0].cpu().numpy() for x in out)), s
+    )
+    if bool(exhausted[0]) and max_iters is None:
+        result = equalize(result, merge_aware=merge_aware)
+    return result

@@ -7,16 +7,18 @@ batch dimension. Every matcher takes ``W`` (B, n, n) float32 and returns a
 
     auction        forward auction (Jacobi: every unassigned row bids at
                    once); every phase and round in one ``auction_rounds``
-                   kernel launch (n ≤ 128).
-    auction_fr     combined forward-reverse auction; the same launch with
+                   kernel launch at n ≤ 128, one ``masked_row_top2``
+                   launch a round above (``auction_round_loop``).
+    auction_fr     combined forward-reverse auction; the same launches with
                    reverse rounds on.
     auction_fused  the whole auction in one ``auction_fused`` kernel launch,
                    then greedy completion and a 2-swap polish.
 
 JAX ``vmap``s its ``while_loop``s; here each lane runs its own loop (in its
-own thread block on the card, under a per-lane done mask in the plain
-version), so a lane's result equals its own single-instance run. The ε
-schedule is formed on the host; no matcher reads the device per round.
+own thread block on the card, under a per-lane done mask in the round
+loop), so a lane's result equals its own single-instance run. The ε
+schedule is formed on the host; only the round loop above n = 128 reads
+the device per round.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ...kernels.auction_bid.ops import auction_rounds
+from ...kernels.auction_bid.ops import ROUNDS_MAX_N, auction_round_loop, auction_rounds
 from ...kernels.auction_fused.ops import fused_auction
 
 # float32 prices saturate once ε < ulp(price); floor ε at two ulps of wmax.
@@ -113,20 +115,27 @@ def _prepare(W, num_phases, max_iters):
     return W, n, num_phases, max_iters
 
 
+def _run_rounds(W: torch.Tensor, num_phases: int, max_iters: int, reverse: bool) -> MatchResult:
+    """Every phase and round of one matcher call: one ``auction_rounds``
+    launch while W fits its block (n ≤ 128), else ``auction_round_loop``.
+    Both give the same result bit for bit where both can run."""
+    run = auction_rounds if W.shape[-1] <= ROUNDS_MAX_N else auction_round_loop
+    row2col, col2row, prices, rounds, _ = run(
+        W, _eps_schedule(W, num_phases).contiguous(), max_iters, reverse=reverse
+    )
+    converged = (row2col >= 0).all(dim=1)
+    return MatchResult(_complete_greedy(row2col, col2row), converged, prices, rounds)
+
+
 def match_auction(
     W: torch.Tensor,
     *,
     num_phases: int | None = None,
     max_iters: int | None = None,
 ) -> MatchResult:
-    """Forward ε-scaling auction on each lane of ``W`` (B, n, n), n ≤ 128
-    (``auction_fused`` above)."""
+    """Forward ε-scaling auction on each lane of ``W`` (B, n, n)."""
     W, n, num_phases, max_iters = _prepare(W, num_phases, max_iters)
-    row2col, col2row, prices, rounds, _ = auction_rounds(
-        W, _eps_schedule(W, num_phases).contiguous(), max_iters, reverse=False
-    )
-    converged = (row2col >= 0).all(dim=1)
-    return MatchResult(_complete_greedy(row2col, col2row), converged, prices, rounds)
+    return _run_rounds(W, num_phases, max_iters, reverse=False)
 
 
 def match_auction_fr(
@@ -135,19 +144,14 @@ def match_auction_fr(
     num_phases: int | None = None,
     max_iters: int | None = None,
 ) -> MatchResult:
-    """Combined forward-reverse auction on each lane of ``W`` (B, n, n),
-    n ≤ 128 (``auction_fused`` above).
+    """Combined forward-reverse auction on each lane of ``W`` (B, n, n).
 
     Rows and columns take turns bidding; a lane flips sides whenever a round
     grows its assignment, and each phase starts on the row side. Row profits
     persist across phases, as in the reference.
     """
     W, n, num_phases, max_iters = _prepare(W, num_phases, max_iters)
-    row2col, col2row, prices, rounds, _ = auction_rounds(
-        W, _eps_schedule(W, num_phases).contiguous(), max_iters, reverse=True
-    )
-    converged = (row2col >= 0).all(dim=1)
-    return MatchResult(_complete_greedy(row2col, col2row), converged, prices, rounds)
+    return _run_rounds(W, num_phases, max_iters, reverse=True)
 
 
 def _polish_2swap(W: torch.Tensor, perm: torch.Tensor, max_swaps: int) -> torch.Tensor:

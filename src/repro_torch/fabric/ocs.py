@@ -10,9 +10,12 @@ of time on one switch link.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
+
 import numpy as np
 
-from ..api.problem import SolveOptions, SolveReport
+from ..api.problem import SolveReport
+from ..core.spectra import SpectraResult
 
 
 @dataclass(frozen=True)
@@ -43,16 +46,42 @@ class OCSFabric:
             return 0.0
         return self.reconfig_delay_s / unit_s
 
-    def schedule_bytes(self, demand_bytes: np.ndarray, scheduler: str = "spectra",
-                       options: SolveOptions | None = None) -> tuple[SolveReport, float]:
-        """Schedule a byte-demand matrix with the registry solver ``scheduler``
-        under ``options`` (default ``SolveOptions()``); returns (result, CCT
-        seconds). All-zero demand gives an empty schedule and a CCT of
+    def schedule_bytes(
+        self,
+        demand_bytes: np.ndarray,
+        scheduler: str | Callable[..., SpectraResult] = "spectra",
+        **kw,
+    ) -> tuple[SolveReport | SpectraResult, float]:
+        """Schedule a byte-demand matrix; returns (result, CCT seconds).
+
+        ``scheduler`` is a registry solver name (preferred) or a legacy
+        callable ``(D, s, delta, **kw) -> SpectraResult``-like. On the
+        registry path, pass ``options=SolveOptions(...)``, or the legacy
+        kwargs ``validate`` / ``compute_lb`` / ``validate_tol``, which are
+        mapped onto SolveOptions (anything else lands in ``extra``); both
+        at once raise ``TypeError``.
+
+        All-zero demand gives an empty schedule at δ = 0 and a CCT of
         exactly 0.0 seconds.
         """
-        from ..api import Problem, solve
-
         D, unit_s = self.normalize(demand_bytes)
         delta = self.delta_units(unit_s) if unit_s > 0.0 else 0.0
-        res = solve(Problem(D, self.num_switches, delta), solver=scheduler, options=options or SolveOptions())
+        if callable(scheduler):
+            res = scheduler(D, self.num_switches, delta, **kw)
+        else:
+            from ..api import Problem, SolveOptions, solve
+
+            options = kw.pop("options", None)
+            if options is None:
+                options = SolveOptions(
+                    validate=kw.pop("validate", True),
+                    compute_lb=kw.pop("compute_lb", True),
+                    validate_tol=kw.pop("validate_tol", None),
+                    extra=kw,
+                )
+            elif kw:
+                raise TypeError(
+                    f"pass either options= or legacy kwargs, not both: {sorted(kw)}"
+                )
+            res = solve(Problem(D, self.num_switches, delta), solver=scheduler, options=options)
         return res, (res.makespan * unit_s if unit_s > 0.0 else 0.0)

@@ -4,9 +4,10 @@
 reduction (the counterpart of the reference's ``_bid_kernel``).
 ``auction_rounds`` wraps ``csrc/auction_rounds.cu``, which runs every phase
 and bidding round of a matcher call in one launch; it is what the matchers
-call at n ≤ 128. A CUDA tensor launches the kernel; a CPU tensor takes the
-plain version in ``ref.py``. Each wrapper's ``launches`` counts its kernel
-launches.
+call at n ≤ 128. Above that, ``auction_round_loop`` runs the same call as a
+Python loop of rounds, each round's top-2 through ``masked_row_top2``. A
+CUDA tensor launches the kernel; a CPU tensor takes the plain version in
+``ref.py``. Each wrapper's ``launches`` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -56,12 +57,12 @@ def masked_row_top2(W: torch.Tensor, prices: torch.Tensor):
 masked_row_top2.launches = 0
 
 
-def _check_rounds(W: torch.Tensor, eps: torch.Tensor, max_iters: int) -> None:
+def _check_rounds(W: torch.Tensor, eps: torch.Tensor, max_iters: int, max_n: int | None) -> None:
     if W.dim() != 3 or W.shape[1] != W.shape[2] or W.shape[1] < 1:
         raise ValueError(f"need W (B, n, n), got {tuple(W.shape)}")
     B, n, _ = W.shape
-    if n > ROUNDS_MAX_N:
-        raise ValueError(f"auction_rounds takes n <= {ROUNDS_MAX_N}, got {n}")
+    if max_n is not None and n > max_n:
+        raise ValueError(f"auction_rounds takes n <= {max_n}, got {n}")
     if eps.dim() != 2 or eps.shape[0] != B or eps.shape[1] < 1:
         raise ValueError(f"eps must be (B, P) with P >= 1, got {tuple(eps.shape)}")
     for name, t in (("W", W), ("eps", eps)):
@@ -80,7 +81,7 @@ def auction_rounds(W: torch.Tensor, eps: torch.Tensor, max_iters: int, *, revers
     forward-reverse auction on each lane of ``W`` (B, n, n), n ≤ 128, under
     the (B, P) ε schedule ``eps``. Returns ``(row2col, col2row, prices,
     rounds, bids)`` as documented on ``ref.auction_rounds_ref``."""
-    _check_rounds(W, eps, max_iters)
+    _check_rounds(W, eps, max_iters, ROUNDS_MAX_N)
     if W.device.type == "cpu":
         return auction_rounds_ref(W, eps, max_iters, reverse=reverse)
     if W.device.type != "cuda":
@@ -102,3 +103,15 @@ def auction_rounds(W: torch.Tensor, eps: torch.Tensor, max_iters: int, *, revers
 
 
 auction_rounds.launches = 0
+
+
+def auction_round_loop(W: torch.Tensor, eps: torch.Tensor, max_iters: int, *, reverse: bool):
+    """The call ``auction_rounds`` makes, at any n: ``ref.auction_rounds_ref``'s
+    loop of bidding rounds (a per-lane done mask, one host read a round) with
+    each round's top-2 through ``masked_row_top2``, so a CUDA tensor launches
+    ``csrc/auction_bid.cu`` once a round. Same arguments and results as
+    ``auction_rounds``; it is what the matchers run above ``ROUNDS_MAX_N``."""
+    _check_rounds(W, eps, max_iters, None)
+    if W.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {W.device}")
+    return auction_rounds_ref(W, eps, max_iters, reverse=reverse, top2=masked_row_top2)

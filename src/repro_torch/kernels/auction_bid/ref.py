@@ -43,10 +43,11 @@ def _drop_scatter(x: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torc
     return torch.cat([x, x[:, :1]], dim=1).scatter(1, idx, src)[:, :n]
 
 
-def _forward_round(W, row2col, col2row, prices, profits, eps, lanes):
+def _forward_round(W, row2col, col2row, prices, profits, eps, lanes, top2):
     """One Jacobi bidding round on the lanes where ``lanes`` (B,) is set;
     with ``profits`` given, also maintains row profits (``π_i = v2 − ε``
-    for winners) for the forward-reverse auction.
+    for winners) for the forward-reverse auction. ``top2`` computes the
+    round's per-row top-2 (``masked_row_top2_ref`` or its kernel).
 
     In a lane that is not set no row bids, so no column takes a bid and the
     round leaves that lane exactly as it was: the done mask costs no select.
@@ -55,7 +56,7 @@ def _forward_round(W, row2col, col2row, prices, profits, eps, lanes):
     arange = torch.arange(n, device=W.device).expand(B, n)
     unassigned = (row2col < 0) & lanes[:, None]
     # In a reverse round `prices` are the row profits, a scatter's slice.
-    v1, v2, j1 = masked_row_top2_ref(W, prices.contiguous())
+    v1, v2, j1 = top2(W, prices.contiguous())
     j1 = j1.long()
     w_j1 = torch.gather(W, 2, j1[..., None])[..., 0]
     bid = torch.where(unassigned, w_j1 - v2 + eps[:, None], NEG)
@@ -87,15 +88,16 @@ def _forward_round(W, row2col, col2row, prices, profits, eps, lanes):
     return row2col, col2row, prices, profits
 
 
-def _reverse_round(Wt, row2col, col2row, prices, profits, eps, lanes):
+def _reverse_round(Wt, row2col, col2row, prices, profits, eps, lanes, top2):
     """Column-side bidding: the forward round on ``Wᵀ`` with roles swapped."""
     col2row, row2col, profits, prices = _forward_round(
-        Wt, col2row, row2col, profits, prices, eps, lanes
+        Wt, col2row, row2col, profits, prices, eps, lanes, top2
     )
     return row2col, col2row, prices, profits
 
 
-def auction_rounds_ref(W: torch.Tensor, eps: torch.Tensor, max_iters: int, *, reverse: bool):
+def auction_rounds_ref(W: torch.Tensor, eps: torch.Tensor, max_iters: int, *, reverse: bool,
+                       top2=masked_row_top2_ref):
     """Every ε-phase and bidding round of the auction on each lane of ``W``.
 
     ``W`` is (B, n, n) float32 and ``eps`` the (B, P) ε schedule. Prices
@@ -112,6 +114,11 @@ def auction_rounds_ref(W: torch.Tensor, eps: torch.Tensor, max_iters: int, *, re
     phases. A lane that is done is never updated again (its round counter
     stops too), so a lane's result equals its own single-instance run. The
     loop reads one flag from the device per round to decide whether to go on.
+
+    ``top2`` is each round's top-2 reduction. The matchers run this loop
+    with the ``masked_row_top2`` wrapper (one kernel launch a round on the
+    card) where ``auction_rounds`` cannot hold W, so both paths share this
+    one definition of a round's arithmetic.
     """
     B, n, _ = W.shape
     dev = W.device
@@ -134,7 +141,7 @@ def auction_rounds_ref(W: torch.Tensor, eps: torch.Tensor, max_iters: int, *, re
                 if not bool(active.any()):
                     break
                 bids += ((row2col < 0) & active[:, None]).sum(dim=1)
-                row2col, col2row, prices, _ = _forward_round(W, row2col, col2row, prices, None, e, active)
+                row2col, col2row, prices, _ = _forward_round(W, row2col, col2row, prices, None, e, active, top2)
             else:
                 go_f, go_r = active & fwd, active & ~fwd
                 # Each lane takes one of the two rounds; the other is a no-op there.
@@ -144,9 +151,9 @@ def auction_rounds_ref(W: torch.Tensor, eps: torch.Tensor, max_iters: int, *, re
                 bids += ((row2col < 0) & go_f[:, None]).sum(dim=1) + ((col2row < 0) & go_r[:, None]).sum(dim=1)
                 new = (row2col, col2row, prices, profits)
                 if any_f:
-                    new = _forward_round(W, *new, e, go_f)
+                    new = _forward_round(W, *new, e, go_f, top2)
                 if any_r:
-                    new = _reverse_round(Wt, *new, e, go_r)
+                    new = _reverse_round(Wt, *new, e, go_r, top2)
                 # A lane that did not bid did not grow, so its side stays.
                 fwd = fwd ^ ((new[0] >= 0).sum(dim=1) > (row2col >= 0).sum(dim=1))
                 row2col, col2row, prices, profits = new

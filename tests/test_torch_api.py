@@ -100,9 +100,14 @@ def test_exhausted_equalize_finished_on_host():
 
 
 def test_registry_and_options():
-    assert list_solvers() == ["spectra", "spectra_no_eq", "spectra_torch"]
+    assert list_solvers() == [
+        "baseline_less", "rotor", "rotor_vlb", "spectra", "spectra_eclipse", "spectra_no_eq", "spectra_pp",
+        "spectra_torch",
+    ]
+    pp = solve(Problem(np.eye(3), 2, 0.01), solver="spectra_pp")  # ported with the host solvers
+    assert pp.validated and pp.backend == "numpy" and pp.makespan == pytest.approx(0.51)  # wrap splits I
     with pytest.raises(KeyError):
-        solve(Problem(np.eye(3), 2, 0.01), solver="spectra_pp")  # not ported yet
+        solve(Problem(np.eye(3), 2, 0.01), solver="spectra_jax")
     with pytest.raises(ValueError):
         solve_many(np.ones((2, 3, 3)), 2, [0.01], options=CPU)
     rep = solve_many([np.eye(4)], 2, 0.01, options=SolveOptions(validate=False, compute_lb=False, extra={"device": "cpu"}))[0]

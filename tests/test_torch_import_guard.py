@@ -97,6 +97,9 @@ def test_import_loads_no_jax_and_no_reference(probe):
         "repro_torch.train.checkpoint", "repro_torch.train.fault_tolerance", "repro_torch.train.optimizer",
         "repro_torch.data.pipeline", "repro_torch.parallel.steps", "repro_torch.fabric.ocs",
         "repro_torch.core.spectra", "repro_torch.core.matching", "repro_torch.api.pipeline",
+        "repro_torch.core.baselines", "repro_torch.core.improved", "repro_torch.core.schedule_ir",
+        "repro_torch.obs.trace", "repro_torch.fabric.timeline", "repro_torch.fabric.simulator",
+        "repro_torch.api.registry", "repro_torch.api.batch",
     ):
         assert name in probe["modules"]
 

@@ -85,6 +85,38 @@ def test_rounds_kernel_equals_plain(cuda, n, reverse):
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("B,n", [(4, 160), (4, 256), (4, 512)])
+def test_bid_kernel_equals_plain_above_128(cuda, B, n):
+    """The op at the widths the round loop gives it above n = 128: random
+    and tie-rich, W and W.T."""
+    rng = np.random.default_rng(n)
+    for W in (torch.from_numpy(rng.random((B, n, n), dtype=np.float32)).to(cuda),
+              torch.from_numpy(rng.integers(0, 3, (B, n, n)).astype(np.float32)).to(cuda)):
+        p = torch.from_numpy(rng.integers(0, 2, (B, n)).astype(np.float32)).to(cuda)
+        for Wx in (W, W.transpose(1, 2).contiguous()):
+            for g, w in zip(masked_row_top2(Wx, p), masked_row_top2_ref(Wx, p)):
+                assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("matcher", ["auction", "auction_fr"])
+@pytest.mark.parametrize("n", [160, 256])
+def test_matchers_above_128_on_the_card_equal_the_cpu(cuda, matcher, n):
+    """Above n = 128 a matcher call is the round loop, one ``masked_row_top2``
+    launch a round on the card: perms, prices and rounds equal the CPU's
+    plain path bit for bit (the round budget cut to keep the CPU side short)."""
+    from repro_torch.core.torchopt.matching import MATCHERS
+
+    rng = np.random.default_rng(n)
+    W = np.stack([_bonus_weights(rng, n), rng.random((n, n), dtype=np.float32)])
+    before = masked_row_top2.launches
+    got = MATCHERS[matcher](torch.from_numpy(W).to(cuda), max_iters=400)
+    torch.cuda.synchronize()
+    assert masked_row_top2.launches > before
+    want = MATCHERS[matcher](torch.from_numpy(W), max_iters=400)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.parametrize("B,n,kernel", [(4, 100, "cluster"), (2, 256, "cluster"), (4, 100, "block"),
                                           (2, 256, "block"), (1, 1024, "block")])
 def test_fused_kernel_equals_plain(cuda, B, n, kernel):

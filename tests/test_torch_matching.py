@@ -172,3 +172,51 @@ def test_default_matcher_thresholds_and_registry():
         assert tm.default_matcher(n) == jm.default_matcher(n)
     with pytest.raises(KeyError):
         tm.get_matcher("hungarian")
+
+
+@pytest.mark.parametrize("matcher", ["auction", "auction_fr"])
+def test_matcher_above_128_matches_reference_given_same_eps(monkeypatch, matcher):
+    """Above n = 128 the matchers run the round loop (one ``masked_row_top2``
+    a round) where ``auction_rounds`` cannot hold W; the result is the
+    reference's, as below 128."""
+    rng = np.random.default_rng(160)
+    Ws = _sparse_bonus_batch(rng, 1, 160)
+    _use_reference_eps(monkeypatch, Ws)
+    res = tm.MATCHERS[matcher](torch.from_numpy(Ws))
+    perm, conv, prices = jm.MATCHERS[matcher](jnp.asarray(Ws[0]), with_prices=True)
+    np.testing.assert_array_equal(res.perm[0].numpy(), np.asarray(perm))
+    assert bool(res.converged[0]) == bool(conv)
+    np.testing.assert_array_equal(res.prices[0].numpy(), np.asarray(prices))
+
+
+@pytest.mark.parametrize("matcher", ["auction", "auction_fr"])
+def test_matchers_take_n_above_128(matcher):
+    """n = 160 used to raise (``auction_rounds`` takes n <= 128). Lanes of a
+    batch equal their own runs, and the CPU launches no kernel."""
+    from repro_torch.kernels.auction_bid import masked_row_top2
+
+    W = torch.from_numpy(np.random.default_rng(7).random((2, 160, 160), dtype=np.float32))
+    before = masked_row_top2.launches
+    batch = tm.MATCHERS[matcher](W)
+    assert masked_row_top2.launches == before
+    assert bool(batch.converged.all())
+    for b in range(2):
+        assert sorted(batch.perm[b].tolist()) == list(range(160))
+    one = tm.MATCHERS[matcher](W[1:])
+    for got, want in zip(batch, one):
+        assert torch.equal(got[1], want[0])
+
+
+@pytest.mark.parametrize("n, max_iters", [(37, None), (128, 40)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_round_loop_equals_auction_rounds_bit_for_bit(n, max_iters, reverse):
+    """At n <= 128 both paths can run: the round loop and ``auction_rounds``
+    agree in every output (row2col, col2row, prices, rounds, bids)."""
+    from repro_torch.kernels.auction_bid import auction_round_loop, auction_rounds
+
+    Ws = torch.from_numpy(_sparse_bonus_batch(np.random.default_rng(n), 2, n))
+    eps = tm._eps_schedule(Ws, tm.default_num_phases(n)).contiguous()
+    mi = tm.default_max_iters(n) if max_iters is None else max_iters
+    for got, want in zip(auction_round_loop(Ws, eps, mi, reverse=reverse),
+                         auction_rounds(Ws, eps, mi, reverse=reverse)):
+        assert got.dtype == want.dtype and torch.equal(got, want)

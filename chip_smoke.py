@@ -92,7 +92,28 @@
 9. whisper-tiny at full depth, B = 4, 1500 frames, 448 tokens: float32
    parity, decode with ``enc_out`` teacher-forced against the forward to
    1e-3; the bf16 forward (12 flash launches) and decode.
-10. Prints one ``{"kernels": [...]}`` line (launches split by path for
+10. The online controller and the scenario runner. ``auction_rounds`` with a
+   non-zero ``prices0`` against its plain version, bit for bit (n = 32, 64,
+   100; forward and forward-reverse; ``None`` equal to zeros). Then
+   ``run_scenario(name, solver="spectra_torch", online=True,
+   simulate=True)`` on gpt, moe, benchmark, moe_phases, uniform,
+   benchmark_large and permutations_large at their registered n, s, δ and
+   period count (the support cache at its default of 8), and moe and
+   permutations_large again with ``warm_prices=True``, each with the
+   counters set to 0 just before it: every online period at most its
+   stateless one and replayed to ``demand_met`` from the carried state,
+   reuse and δ avoided on gpt and moe, ``auction_rounds`` launched with
+   ``prices0`` and ``auction_fused`` entered at the tail of its ε schedule
+   on the warm runs, no ``masked_row_top2``. The scan's host reads are
+   counted a period (``torch.cuda.set_sync_debug_mode``). On the five
+   scenarios with n <= 100 the card's scan is held to the plain CPU path
+   (``warm``, ``cache_hit``, ``k``, ``reuse_count`` exact, makespans to
+   1e-4), which a child process of this script computes while the card
+   runs the other phases. Prints per scenario the online pass's wall, ms
+   and host reads a period, bidding rounds, warm share, cache hits, reuse,
+   δ avoided and the online/stateless totals, and one ``{"online": ...}``
+   line.
+11. Prints one ``{"kernels": [...]}`` line (launches split by path for
    the auction kernels and ``flash_attention``) and, last, the ``{"ok": true, "device": {...}}`` line.
    Any failed check exits non-zero.
 
@@ -103,6 +124,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1581,11 +1603,229 @@ def phase_solver_layer(seed: int) -> dict:
                 wall512_ms=wall512, traced_wall_ms=traced_wall, span_ms=totals)
 
 
+ONLINE_SCENARIOS = ("gpt", "moe", "benchmark", "moe_phases", "uniform", "benchmark_large", "permutations_large")
+ONLINE_CPU = ("gpt", "moe", "benchmark", "moe_phases", "uniform")  # n <= 100: held against the plain CPU path
+ONLINE_FIELDS = ("warm", "cache_hit", "k", "reuse_count", "makespan", "stateless_makespan")
+
+
+def online_scan_kwargs(trace) -> dict:
+    """What ``run_scenario(..., online=True)`` hands ``spectra_online_scan``
+    for a registered scenario with default options."""
+    from repro_torch.core.torchopt.matching import default_matcher
+
+    units, _, delta = trace.normalized()
+    deltas = np.broadcast_to(np.asarray(delta, dtype=np.float64), (trace.T,))
+    return dict(Ds=units.astype(np.float32), s=trace.spec.s, deltas=deltas.astype(np.float32),
+                matcher=default_matcher(trace.n), cache_size=8)
+
+
+def cpu_online(out_path: str) -> None:
+    """``--cpu-online OUT``: the online scan of each ``ONLINE_CPU`` scenario
+    on the plain CPU path, its decisions and makespans saved to OUT (.npz).
+    ``main`` runs this in a child process while the card works."""
+    from repro_torch.core.torchopt.online_torch import spectra_online_scan
+    from repro_torch.scenarios import make_trace
+
+    torch.set_num_threads(1)
+    out = {}
+    for name in ONLINE_CPU:
+        t0 = time.perf_counter()
+        res, _ = spectra_online_scan(device="cpu", **online_scan_kwargs(make_trace(name)))
+        for f in ONLINE_FIELDS:
+            out[f"{name}.{f}"] = getattr(res, f)[0].numpy()
+        out[f"{name}.seconds"] = np.float64(time.perf_counter() - t0)
+    np.savez(out_path, **out)
+
+
+def phase_online(rng, cpu_child, cpu_path: str) -> dict:
+    """The online controller and the scenario runner on the card.
+
+    1. ``auction_rounds`` with a non-zero ``prices0`` (the final prices of a
+       previous call on the same instance family: the M-bonus scale) against
+       ``auction_rounds_ref``, bit for bit, forward and forward-reverse, at
+       n = 32, 64 and 100; ``prices0=None`` equal to a zeros ``prices0``.
+    2. ``run_scenario(name, solver="spectra_torch", online=True,
+       simulate=True)`` on the seven scenarios at their registered n, s, δ
+       and period count, the support cache at its default of 8, counting the
+       scan's host reads; then moe and permutations_large again with
+       ``warm_prices=True``. Counters set to 0 just before each run and read
+       just after. Every online period must be at most its stateless
+       period and replay to ``demand_met`` from the carried state; gpt and
+       moe must reuse configurations and avoid δ; the warm runs must launch
+       ``auction_rounds`` with ``prices0`` and enter ``auction_fused``'s ε
+       schedule at its tail.
+    3. CUDA events around the period's sequential loops at n = 512: the warm
+       REFINE over k rounds and over all n, and the LPT loop.
+    4. The card's scan on the n <= 100 scenarios against the plain CPU path's
+       (``cpu_online``, run in ``cpu_child`` meanwhile): ``warm``,
+       ``cache_hit``, ``k`` and ``reuse_count`` exact, the makespans to 1e-4.
+    """
+    import repro_torch.core.torchopt.online_torch as online_torch
+    from repro_torch.api import SolveOptions
+    from repro_torch.core.torchopt.matching import (_eps_schedule, default_max_iters, default_num_phases,
+                                                    match_auction_fused)
+    from repro_torch.kernels.auction_bid import auction_rounds, auction_rounds_ref, masked_row_top2
+    from repro_torch.kernels.auction_fused import fused_auction
+    from repro_torch.scenarios import get_scenario, run_scenario
+    from repro_torch.traffic import benchmark_workload, gpt3b_workload, moe_workload
+
+    dev = "cuda"
+    makers = {32: lambda r: gpt3b_workload(rng=r), 64: lambda r: moe_workload(rng=r),
+              100: lambda r: benchmark_workload(rng=r)}
+    cases, max_err = 0, 0.0
+    for n, make in makers.items():
+        B = 4
+        D = np.stack([make(np.random.default_rng(int(rng.integers(1 << 31)))) for _ in range(B)])
+        W = bonus_weights(torch.from_numpy(D.astype(np.float32)).to(dev))
+        W2 = (W * (1.0 + 0.01 * torch.from_numpy(rng.standard_normal((B, n, n)).astype(np.float32)).to(dev))).contiguous()
+        eps = _eps_schedule(W, default_num_phases(n)).contiguous()
+        mi = default_max_iters(n)
+        for reverse in (False, True):
+            p0 = auction_rounds(W2, eps, mi, reverse=reverse)[2]  # a previous call's prices
+            check(bool((p0 != 0).any()), f"auction_rounds n={n}: zero warm prices")
+            got = auction_rounds(W, eps, mi, reverse=reverse, prices0=p0)
+            torch.cuda.synchronize()
+            want = auction_rounds_ref(W, eps, mi, reverse=reverse, prices0=p0)
+            for name, g, w in zip(("row2col", "col2row", "prices", "rounds", "bids"), got, want):
+                check(torch.equal(g, w), f"auction_rounds prices0 {name} n={n} reverse={reverse} differs from its "
+                                         f"plain version")
+            cold = auction_rounds(W, eps, mi, reverse=reverse)
+            zeros = auction_rounds(W, eps, mi, reverse=reverse, prices0=torch.zeros_like(p0))
+            for name, c, z in zip(("row2col", "col2row", "prices", "rounds", "bids"), cold, zeros):
+                check(torch.equal(c, z), f"auction_rounds n={n} reverse={reverse}: prices0=None differs from zeros "
+                                         f"in {name}")
+            max_err = max(max_err, float((got[2] - want[2]).abs().max()))
+            cases += 1
+    print(f"auction_rounds with prices0: kernel == plain version exactly in {cases} cases (B=4, n in 32/64/100, "
+          f"forward and forward-reverse, prices0 = a previous call's final prices, up to "
+          f"{float(p0.abs().max()):.4g}); prices0=None == zeros")
+
+    scanned = {}
+    real_scan = online_torch.spectra_online_scan
+
+    def capture(*args, **kw):  # the card's raw scan results, for the CPU comparison
+        res, fin = real_scan(*args, **kw)
+        scanned["res"] = res
+        return res, fin
+
+    online_torch.spectra_online_scan = capture
+    launches = {"auction_bid": 0, "auction_rounds": 0, "auction_fused": 0, "auction_fused_cluster": 0,
+                "auction_rounds_warm": 0, "auction_fused_warm_entries": 0}
+    rows = {}
+    try:
+        for name, warm_prices in [(n, False) for n in ONLINE_SCENARIOS] + [("moe", True), ("permutations_large", True)]:
+            spec = get_scenario(name).spec
+            opts = SolveOptions(extra={"count_host_reads": True, "warm_prices": warm_prices})
+            masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = 0
+            fused_auction.cluster_launches = auction_rounds.warm_launches = match_auction_fused.warm_entries = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = run_scenario(name, solver="spectra_torch", online=True, simulate=True, options=opts)
+            wall = time.perf_counter() - t0
+            got = {"auction_bid": masked_row_top2.launches, "auction_rounds": auction_rounds.launches,
+                   "auction_fused": fused_auction.launches, "auction_fused_cluster": fused_auction.cluster_launches,
+                   "auction_rounds_warm": auction_rounds.warm_launches,
+                   "auction_fused_warm_entries": match_auction_fused.warm_entries}
+            for k, v in got.items():
+                launches[k] += v
+            per = rep.online_periods
+            check(rep.trace.n == spec.n and rep.trace.T == spec.periods and rep.spec.s == spec.s,
+                  f"{name}: ran at n={rep.trace.n}, T={rep.trace.T}, s={rep.spec.s}, not the registered size")
+            check(rep.online_solver == "scan", f"{name}: online pass ran on {rep.online_solver}")
+            for p in per:
+                check(p.makespan <= p.stateless_makespan * (1 + 1e-6) + 1e-9,
+                      f"{name} period {p.period}: online {p.makespan} above stateless {p.stateless_makespan}")
+                check(p.demand_met, f"{name} period {p.period}: the online schedule does not serve the demand")
+            check(all(r.validated for r in rep.reports) and all(q.demand_met for q in rep.periods),
+                  f"{name}: a stateless period did not validate or serve its demand")
+            if name in ("gpt", "moe") and not warm_prices:
+                check(rep.total_reuse > 0 and rep.total_delta_avoided > 0,
+                      f"{name}: reuse {rep.total_reuse}, δ avoided {rep.total_delta_avoided}")
+            if warm_prices:
+                key = "auction_rounds_warm" if name == "moe" else "auction_fused_warm_entries"
+                kernel = "auction_rounds" if name == "moe" else "auction_fused"
+                check(got[key] > 0 and got[kernel] > 0, f"{name} warm prices: launches {got}")
+            reads = [p.host_reads for p in per]
+            check(all(r is not None for r in reads), f"{name}: host reads not counted")
+            summary = rep.online_summary()
+            row = dict(
+                n=spec.n, s=spec.s, periods=spec.periods, delta=spec.delta, warm_prices=warm_prices,
+                online_wall_s=rep.online_runtime_s, ms_per_period=rep.online_runtime_s * 1e3 / len(per),
+                stateless_wall_s=rep.runtime_s, run_wall_s=wall,
+                host_reads=reads, host_reads_per_period=float(np.mean(reads)), host_reads_total=int(sum(reads)),
+                bidding_rounds=int(sum(p.bidding_rounds for p in per)),
+                warm_share=float(np.mean([p.warm for p in per])), cache_hits=int(sum(p.cache_hit for p in per)),
+                k=[p.k for p in per], reuse=rep.total_reuse, delta_avoided=rep.total_delta_avoided,
+                online_total=summary["online_total_makespan"], stateless_total=summary["stateless_total_makespan"],
+                launches=got,
+            )
+            rows[name + (" warm_prices" if warm_prices else "")] = row
+            print(f"online {name}{' warm_prices' if warm_prices else ''} n={spec.n} s={spec.s} T={spec.periods}: "
+                  f"online pass {rep.online_runtime_s * 1e3:.1f} ms ({row['ms_per_period']:.1f} ms a period), "
+                  f"host reads a period {row['host_reads_per_period']:.1f} ({reads}; {sum(reads)} over the trace), "
+                  f"bidding rounds "
+                  f"{row['bidding_rounds']}, warm share {row['warm_share']:.3f}, cache hits {row['cache_hits']}, "
+                  f"k {row['k']}, reuse {rep.total_reuse}, δ avoided {rep.total_delta_avoided:.4g}, online/stateless "
+                  f"total {row['online_total']:.6f}/{row['stateless_total']:.6f} = "
+                  f"{row['online_total'] / row['stateless_total']:.4f}; stateless pass {rep.runtime_s * 1e3:.1f} ms; "
+                  f"launches {got}")
+            if name in ONLINE_CPU and not warm_prices:
+                rows[name]["card"] = {f: getattr(scanned["res"], f)[0].cpu().numpy() for f in ONLINE_FIELDS}
+    finally:
+        online_torch.spectra_online_scan = real_scan
+
+    # The period's sequential loops at n = 512 (permutations_large, period 0):
+    # the warm REFINE over the previous set's k rounds (what the port runs)
+    # and over all n (the reference's fixed trip count), and the LPT loop.
+    from repro_torch.core.torchopt.decompose_torch import decompose, lpt_place
+    from repro_torch.scenarios import make_trace
+
+    D = torch.from_numpy(make_trace("permutations_large").demands[:1].astype(np.float32)).to(dev)
+    dec = decompose(D, matcher="auction_fused")
+    k, n = int(dec.k[0]), D.shape[-1]
+    loops = {f"warm_refine_{steps}_ms": cuda_ms(lambda: online_torch._warm_refine(D, dec.perms, dec.k, steps), 3)
+             for steps in (k, n)}
+    valid = torch.arange(n, device=dev)[None, :] < dec.k[:, None]
+    loops["lpt_ms"] = cuda_ms(lambda: lpt_place(dec.alphas, valid, torch.zeros((1, 4), device=dev),
+                                                torch.full((1,), 0.01, device=dev),
+                                                torch.full((1, n), -1, dtype=torch.int64, device=dev), k), 3)
+    print(f"online loops at n={n}, k={k}: warm REFINE over k rounds {loops[f'warm_refine_{k}_ms']:.2f} ms, over "
+          f"all n {loops[f'warm_refine_{n}_ms']:.2f} ms; LPT over k rounds {loops['lpt_ms']:.2f} ms")
+
+    t0 = time.perf_counter()
+    try:
+        cpu_child.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("the CPU online scans did not finish in 600 s")
+    check(cpu_child.returncode == 0, f"the CPU online scans exited with {cpu_child.returncode}")
+    cpu = np.load(cpu_path)
+    for name in ONLINE_CPU:
+        card = rows[name].pop("card")
+        for f in ("warm", "cache_hit", "k", "reuse_count"):
+            check(np.array_equal(card[f], cpu[f"{name}.{f}"]),
+                  f"online {name}: {f} on the card {card[f].tolist()} vs the CPU {cpu[f'{name}.{f}'].tolist()}")
+        rel = max(float(np.max(np.abs(card[f] - cpu[f"{name}.{f}"]) / cpu[f"{name}.{f}"]))
+                  for f in ("makespan", "stateless_makespan"))
+        check(rel <= 1e-4, f"online {name}: makespans differ from the CPU's by {rel:.3g} relative")
+        rows[name]["cpu_rel"] = rel
+        rows[name]["cpu_s"] = float(cpu[f"{name}.seconds"])
+        print(f"online {name}: card == plain CPU path in warm, cache_hit, k, reuse_count; makespans max relative "
+              f"difference {rel:.3g} (CPU scan {float(cpu[f'{name}.seconds']):.1f} s)")
+    check(launches["auction_rounds"] > 0 and launches["auction_fused"] > 0 and launches["auction_bid"] == 0,
+          f"online path launches {launches}")
+    print(f"online: waited {time.perf_counter() - t0:.1f} s for the CPU scans; launches {launches}")
+    return dict(launches=launches, rows=rows, loops=loops, warm_check_cases=cases, warm_check_max_abs_err=max_err)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cpu-online", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     sys.stdout.reconfigure(line_buffering=True)
+    if args.cpu_online:
+        cpu_online(args.cpu_online)
+        return
     if not torch.cuda.is_available():
         fail("no CUDA device")
     from repro_torch.kernels import backend
@@ -1597,6 +1837,25 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    # The online phase's CPU reference runs beside the card's phases.
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory()
+    cpu_path = str(Path(tmp.name) / "cpu_online.npz")
+    cpu_child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--cpu-online", cpu_path],
+                                 env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    try:
+        run_phases(args, t_start, cpu_child, cpu_path)
+    finally:
+        if cpu_child.poll() is None:
+            cpu_child.kill()
+            cpu_child.wait()
+        tmp.cleanup()
+
+
+def run_phases(args, t_start: float, cpu_child, cpu_path: str) -> None:
+    from repro_torch.kernels import backend
+
     t0 = time.perf_counter()
     backend.load_library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s ({backend.library_path().name})")
@@ -1641,32 +1900,42 @@ def main() -> None:
     by_path["vlm_forward"] = phase_vlm(args.seed)
     by_path["audio_forward"] = phase_whisper(args.seed)
     print(f"VLM and audio phases: {time.perf_counter() - t0:.1f} s")
+    free_device_memory()
+    t0 = time.perf_counter()
+    online = phase_online(np.random.default_rng([18, args.seed]), cpu_child, cpu_path)
+    print(f"online phase: {time.perf_counter() - t0:.1f} s")
     launches["demand_accum"] = demand_accum.launches
 
     bid_main = bid["shapes"][3]  # (4, 512): the widest the round loop serves on the solver layer's path
     by_layer = layer["launches"]
 
+    by_online = online["launches"]
+
     def paths(key: str) -> dict:
-        return {"solver_buckets": launches[key], "solver_layer": by_layer[key]}
+        return {"solver_buckets": launches[key], "solver_layer": by_layer[key], "online": by_online[key]}
 
     kernels = [
         dict(name="auction_bid", route="cuda", source="src/repro_torch/csrc/auction_bid.cu",
              replaces="src/repro/kernels/auction_bid/kernel.py:22",
-             launches=launches["auction_bid"] + by_layer["auction_bid"], launches_by_path=paths("auction_bid"),
+             launches=sum(paths("auction_bid").values()), launches_by_path=paths("auction_bid"),
              max_abs_err=bid["max_abs_err"], ms=bid_main["ms"], plain_ms=bid_main["plain_ms"],
              bound_ms=bid_main["bound_ms"], bound_by=bid_main["bound_by"], library_ms=bid_main["library_ms"],
              shape=bid_main["shape"], shapes=bid["shapes"], matchers_above_128=above),
         dict(name="auction_rounds", route="cuda", source="src/repro_torch/csrc/auction_rounds.cu",
              replaces="src/repro/kernels/auction_bid/kernel.py:22",
-             launches=launches["auction_rounds"] + by_layer["auction_rounds"], launches_by_path=paths("auction_rounds"),
-             max_abs_err=rounds["max_abs_err"], ms=rounds["ms"], plain_ms=rounds["plain_ms"],
+             launches=sum(paths("auction_rounds").values()), launches_by_path=paths("auction_rounds"),
+             online_warm_launches=by_online["auction_rounds_warm"],
+             prices0_cases=online["warm_check_cases"], prices0_max_abs_err=online["warm_check_max_abs_err"],
+             max_abs_err=max(rounds["max_abs_err"], online["warm_check_max_abs_err"]), ms=rounds["ms"],
+             plain_ms=rounds["plain_ms"],
              bound_ms=rounds["bound_ms"], bound_by=rounds["bound_by"], library_ms=None,
              shape=rounds["shape"], rounds=rounds["rounds"], bids=rounds["bids"],
              matcher_call_ms=rounds["matcher_call_ms"]),
         dict(name="auction_fused", route="cuda", source="src/repro_torch/csrc/auction_fused.cu",
              replaces="src/repro/kernels/auction_fused/kernel.py:55",
-             launches=launches["auction_fused"] + by_layer["auction_fused"], launches_by_path=paths("auction_fused"),
-             cluster_launches=launches["auction_fused_cluster"] + by_layer["auction_fused_cluster"],
+             launches=sum(paths("auction_fused").values()), launches_by_path=paths("auction_fused"),
+             cluster_launches=sum(paths("auction_fused_cluster").values()),
+             online_warm_entries=by_online["auction_fused_warm_entries"],
              max_abs_err=fused["max_abs_err"], ms=fused["ms"], plain_ms=fused["plain_ms"],
              bound_ms=fused["bound_ms"], bound_by=fused["bound_by"], library_ms=None,
              shape=fused["shape"], kernel=fused["kernel"], us_per_round=fused["us_per_round"],
@@ -1692,6 +1961,7 @@ def main() -> None:
              shape=accum["shape"], shapes=accum["shapes"]),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"online": online["rows"], "online_loops_n512": online["loops"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -11,6 +11,8 @@ Built-in solvers (the reference's, with ``spectra_torch`` in place of
     spectra_torch    fused batched DECOMPOSE+LPT+EQUALIZE on the device
     rotor            demand-oblivious round-robin rotor (no matching solves)
     rotor_vlb        rotor sized for 2-hop Valiant load balancing
+    spectra_online   stateful cross-period controller (host; ``online``)
+    spectra_online_torch  the same on the device (``online_torch``)
 
 A solver is any callable ``(Problem, SolveOptions) -> SolveReport``;
 ``Pipeline`` instances qualify. Register your own with ``register_solver``.
@@ -50,6 +52,10 @@ def register_solver(name: str, fn: SolverFn | None = None, *, overwrite: bool = 
 
 
 def get_solver(name: str) -> SolverFn:
+    if name not in _SOLVERS and name.startswith("spectra_online"):
+        # The online package registers its stateful solvers on import;
+        # importing it here, not at module load, avoids the api ↔ online cycle.
+        from .. import online  # noqa: F401
     if name not in _SOLVERS:
         raise KeyError(f"unknown solver {name!r}; available: {list_solvers()}")
     return _SOLVERS[name]

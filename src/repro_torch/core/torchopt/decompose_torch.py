@@ -58,11 +58,20 @@ def coverage(perms: torch.Tensor, alphas: torch.Tensor, k: torch.Tensor) -> torc
     return out
 
 
-def _decompose_rounds(D: torch.Tensor, matcher: str):
-    """Alg. 1: matcher rounds until no residual support is left."""
+def _decompose_rounds(D: torch.Tensor, matcher: str, carry_prices: bool = False,
+                      prices0: torch.Tensor | None = None):
+    """Alg. 1: matcher rounds until no residual support is left.
+
+    With ``carry_prices`` each round's matcher starts from the previous
+    round's final prices, lane by lane, and round 0 from ``prices0`` (None:
+    zeros); the final prices come back as the sixth result. Without it every
+    round starts from zero prices and ``prices0`` comes back unchanged.
+    """
     match = get_matcher(matcher)
     B, n, _ = D.shape
     dev = D.device
+    prices = (torch.zeros((B, n), dtype=torch.float32, device=dev) if prices0 is None
+              else torch.as_tensor(prices0, dtype=torch.float32, device=dev).expand(B, n).clone())
     D_rem = D.clone()
     S_rem = D > 0
     perms = torch.arange(n, device=dev).expand(B, n, n).clone()
@@ -90,7 +99,11 @@ def _decompose_rounds(D: torch.Tensor, matcher: str):
         M = (row_max_sum + 1.0) * (1.0 + n * 2.0**-19)
         bonus = M[:, None, None] * (crit_r[:, :, None].float() + crit_c[:, None, :].float())
         W = base + torch.where(Sr, bonus, 0.0)
-        res = match(W)
+        if carry_prices:
+            res = match(W, prices0=prices[idx])
+            prices[idx] = res.prices
+        else:
+            res = match(W)
         perm = res.perm
         newly = _take(Sr, perm)
         vals = torch.where(newly, _take(Dr, perm), torch.inf)
@@ -103,7 +116,7 @@ def _decompose_rounds(D: torch.Tensor, matcher: str):
         i[idx] = ir + 1
         conv[idx] &= res.converged
         rounds[idx] += res.rounds
-    return perms, alphas, i, conv, rounds
+    return perms, alphas, i, conv, rounds, prices
 
 
 def _refine(D, perms, alphas, k):
@@ -150,6 +163,15 @@ def _repair(D, perms, alphas, k, repair_rounds: int):
     return perms, alphas, live.sum(dim=1)
 
 
+def _decompose(D, matcher, repair_rounds, carry_prices, prices0):
+    D = D.to(torch.float32)
+    perms, alphas, k, conv, rounds, prices = _decompose_rounds(D, matcher, carry_prices, prices0)
+    alphas = _refine(D, perms, alphas, k)
+    if repair_rounds:
+        perms, alphas, k = _repair(D, perms, alphas, k, repair_rounds)
+    return TorchDecomposition(perms, alphas, k, conv, rounds), prices
+
+
 def decompose(
     D: torch.Tensor,
     *,
@@ -157,13 +179,25 @@ def decompose(
     repair_rounds: int = 0,
 ) -> TorchDecomposition:
     """Exactly-k decomposition of each lane of ``D`` (B, n, n): Alg. 1 +
-    greedy REFINE (+ ``repair_rounds`` local-search sweeps)."""
-    D = D.to(torch.float32)
-    perms, alphas, k, conv, rounds = _decompose_rounds(D, matcher)
-    alphas = _refine(D, perms, alphas, k)
-    if repair_rounds:
-        perms, alphas, k = _repair(D, perms, alphas, k, repair_rounds)
-    return TorchDecomposition(perms, alphas, k, conv, rounds)
+    greedy REFINE (+ ``repair_rounds`` local-search sweeps). Every matcher
+    call starts from zero prices."""
+    return _decompose(D, matcher, repair_rounds, False, None)[0]
+
+
+def decompose_prices(
+    D: torch.Tensor,
+    prices0: torch.Tensor | None,
+    *,
+    matcher: str = "auction",
+    repair_rounds: int = 0,
+) -> tuple[TorchDecomposition, torch.Tensor]:
+    """Warm-started decomposition, the counterpart of ``decompose_jax_prices``:
+    the matcher's prices carry from round to round, round 0 starts from
+    ``prices0`` ((n,) or (B, n); None: zeros), and the final (B, n) prices
+    come back beside the decomposition for the caller to carry on. Every
+    round hands the matcher prices, so ``auction_fused`` enters its ε
+    schedule at the tail each round, as the reference's does."""
+    return _decompose(D, matcher, repair_rounds, True, prices0)
 
 
 def to_decomposition(dec: TorchDecomposition, lane: int = 0) -> Decomposition:
@@ -181,6 +215,29 @@ def to_decomposition(dec: TorchDecomposition, lane: int = 0) -> Decomposition:
     )
 
 
+def lpt_place(alphas, place, loads, delta, assignment, steps: int):
+    """Alg. 3's placement loop per lane: the rounds in ``place`` (B, n) in
+    non-increasing α order (stable), each onto the least-loaded switch of
+    ``loads`` (B, s) (lowest index on ties), each adding δ + α; ``steps`` is
+    at least the largest count of rounds to place. Rounds outside ``place``
+    keep ``assignment``. Returns ``(assignment, loads)``."""
+    B, n = alphas.shape
+    dev = alphas.device
+    order = torch.argsort(torch.where(place, -alphas, torch.inf), dim=1, stable=True)
+    a_sorted = torch.gather(alphas, 1, order)
+    real_sorted = torch.gather(place, 1, order)
+    placed = torch.full((B, n), -1, dtype=torch.int64, device=dev)
+    # Rounds outside `place` sort last, so `steps` covers every real one.
+    for t in range(steps):
+        h = torch.argmin(loads, dim=1)
+        real = real_sorted[:, t]
+        add = torch.where(real, delta + a_sorted[:, t], 0.0)
+        loads = torch.where(real[:, None], loads.scatter_add(1, h[:, None], add[:, None]), loads)
+        placed[:, t] = torch.where(real, h, -1)
+    scattered = torch.full((B, n), -1, dtype=torch.int64, device=dev).scatter(1, order, placed)
+    return torch.where(place, scattered, assignment), loads
+
+
 def lpt_schedule(dec: TorchDecomposition, s: int, delta: torch.Tensor):
     """Alg. 3 per lane: returns ``(assignment (B, n), loads (B, s),
     makespan (B,))``; ``delta`` is (B,). Rounds go in non-increasing α order
@@ -188,17 +245,8 @@ def lpt_schedule(dec: TorchDecomposition, s: int, delta: torch.Tensor):
     B, n = dec.alphas.shape
     dev = dec.alphas.device
     valid = (torch.arange(n, device=dev)[None, :] < dec.k[:, None]) & (dec.alphas > 0)
-    order = torch.argsort(torch.where(valid, -dec.alphas, torch.inf), dim=1, stable=True)
-    a_sorted = torch.gather(dec.alphas, 1, order)
-    real_sorted = torch.gather(valid, 1, order)
-    loads = torch.zeros((B, s), dtype=torch.float32, device=dev)
-    placed = torch.full((B, n), -1, dtype=torch.int64, device=dev)
-    # Invalid rounds sort last, so the loop stops at the longest valid prefix.
-    for t in range(int(valid.sum(dim=1).max()) if B else 0):
-        h = torch.argmin(loads, dim=1)
-        real = real_sorted[:, t]
-        add = torch.where(real, delta + a_sorted[:, t], 0.0)
-        loads = torch.where(real[:, None], loads.scatter_add(1, h[:, None], add[:, None]), loads)
-        placed[:, t] = torch.where(real, h, -1)
-    assignment = torch.full((B, n), -1, dtype=torch.int64, device=dev).scatter(1, order, placed)
+    assignment, loads = lpt_place(
+        dec.alphas, valid, torch.zeros((B, s), dtype=torch.float32, device=dev), delta,
+        torch.full((B, n), -1, dtype=torch.int64, device=dev), int(valid.sum(dim=1).max()) if B else 0,
+    )
     return assignment, loads, loads.amax(dim=1)

@@ -30,6 +30,22 @@ class E2EResult(NamedTuple):
     lb: torch.Tensor              # (B,) §IV lower bound
 
 
+def slot_table(dec: TorchDecomposition, assignment: torch.Tensor, deltas: torch.Tensor,
+               extra_slots: int) -> DeviceSchedule:
+    """The decomposition's n slots (round r on switch ``assignment[:, r]``)
+    and ``extra_slots`` free ones, EQUALIZE's split headroom."""
+    B, n = dec.alphas.shape
+    dev = dec.alphas.device
+    return DeviceSchedule(
+        perms=torch.cat([dec.perms, torch.arange(n, device=dev).expand(B, extra_slots, n)], dim=1),
+        alphas=torch.cat([dec.alphas, torch.zeros((B, extra_slots), device=dev)], dim=1),
+        switch=torch.cat(
+            [assignment, torch.full((B, extra_slots), -1, dtype=torch.int64, device=dev)], dim=1
+        ),
+        delta=deltas,
+    )
+
+
 def schedule_decomposition(
     dec: TorchDecomposition,
     s: int,
@@ -42,18 +58,9 @@ def schedule_decomposition(
     """LPT then EQUALIZE of a batched decomposition; returns ``(schedule,
     lpt_makespan, eq_exhausted)``. ``extra_slots`` free slots are appended
     to the n decomposition slots as EQUALIZE's split headroom."""
-    B, n = dec.alphas.shape
-    dev = dec.alphas.device
     assignment, _, lpt_makespan = lpt_schedule(dec, s, deltas)
-    ds = DeviceSchedule(
-        perms=torch.cat([dec.perms, torch.arange(n, device=dev).expand(B, extra_slots, n)], dim=1),
-        alphas=torch.cat([dec.alphas, torch.zeros((B, extra_slots), device=dev)], dim=1),
-        switch=torch.cat(
-            [assignment, torch.full((B, extra_slots), -1, dtype=torch.int64, device=dev)], dim=1
-        ),
-        delta=deltas,
-    )
-    eq_exhausted = torch.zeros((B,), dtype=torch.bool, device=dev)
+    ds = slot_table(dec, assignment, deltas, extra_slots)
+    eq_exhausted = torch.zeros((dec.alphas.shape[0],), dtype=torch.bool, device=dec.alphas.device)
     if do_equalize:
         ds, eq_exhausted = equalize_ir(ds, s, merge_aware=merge_aware)
     return ds, lpt_makespan, eq_exhausted

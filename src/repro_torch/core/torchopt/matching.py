@@ -115,13 +115,22 @@ def _prepare(W, num_phases, max_iters):
     return W, n, num_phases, max_iters
 
 
-def _run_rounds(W: torch.Tensor, num_phases: int, max_iters: int, reverse: bool) -> MatchResult:
+def _warm_prices(prices0, W: torch.Tensor) -> torch.Tensor | None:
+    """``prices0`` as contiguous (B, n) float32 on W's device (None stays None)."""
+    if prices0 is None:
+        return None
+    B, n = W.shape[0], W.shape[-1]
+    return torch.as_tensor(prices0, dtype=torch.float32, device=W.device).expand(B, n).contiguous()
+
+
+def _run_rounds(W: torch.Tensor, num_phases: int, max_iters: int, reverse: bool, prices0) -> MatchResult:
     """Every phase and round of one matcher call: one ``auction_rounds``
     launch while W fits its block (n ≤ 128), else ``auction_round_loop``.
     Both give the same result bit for bit where both can run."""
     run = auction_rounds if W.shape[-1] <= ROUNDS_MAX_N else auction_round_loop
     row2col, col2row, prices, rounds, _ = run(
-        W, _eps_schedule(W, num_phases).contiguous(), max_iters, reverse=reverse
+        W, _eps_schedule(W, num_phases).contiguous(), max_iters, reverse=reverse,
+        prices0=_warm_prices(prices0, W),
     )
     converged = (row2col >= 0).all(dim=1)
     return MatchResult(_complete_greedy(row2col, col2row), converged, prices, rounds)
@@ -132,10 +141,16 @@ def match_auction(
     *,
     num_phases: int | None = None,
     max_iters: int | None = None,
+    prices0: torch.Tensor | None = None,
 ) -> MatchResult:
-    """Forward ε-scaling auction on each lane of ``W`` (B, n, n)."""
+    """Forward ε-scaling auction on each lane of ``W`` (B, n, n).
+
+    ``prices0`` ((n,) or (B, n)) warm-starts the column prices, e.g. with a
+    previous similar instance's final prices (``MatchResult.prices``); the
+    whole ε schedule still runs, as in the reference.
+    """
     W, n, num_phases, max_iters = _prepare(W, num_phases, max_iters)
-    return _run_rounds(W, num_phases, max_iters, reverse=False)
+    return _run_rounds(W, num_phases, max_iters, False, prices0)
 
 
 def match_auction_fr(
@@ -143,15 +158,17 @@ def match_auction_fr(
     *,
     num_phases: int | None = None,
     max_iters: int | None = None,
+    prices0: torch.Tensor | None = None,
 ) -> MatchResult:
     """Combined forward-reverse auction on each lane of ``W`` (B, n, n).
 
     Rows and columns take turns bidding; a lane flips sides whenever a round
-    grows its assignment, and each phase starts on the row side. Row profits
+    grows its assignment, and each phase starts on the row side. Prices start
+    at ``prices0`` (as on ``match_auction``) and row profits at 0; both
     persist across phases, as in the reference.
     """
     W, n, num_phases, max_iters = _prepare(W, num_phases, max_iters)
-    return _run_rounds(W, num_phases, max_iters, reverse=True)
+    return _run_rounds(W, num_phases, max_iters, True, prices0)
 
 
 def _polish_2swap(W: torch.Tensor, perm: torch.Tensor, max_swaps: int) -> torch.Tensor:
@@ -198,10 +215,11 @@ def match_auction_fused(
     eps_sched = _eps_schedule(W, num_phases)
     if prices0 is not None:
         eps_sched = eps_sched[:, -max(2, num_phases // 2):]
+        match_auction_fused.warm_entries += 1
     if prices0 is None:
         prices = torch.zeros((B, n), dtype=torch.float32, device=W.device)
     else:
-        prices = torch.as_tensor(prices0, dtype=torch.float32, device=W.device).expand(B, n).contiguous()
+        prices = _warm_prices(prices0, W)
     r2c, c2r, prices, rounds, _ = fused_auction(
         W, prices, eps_sched.contiguous(), max_iters=max_iters
     )
@@ -209,6 +227,9 @@ def match_auction_fused(
     converged = (r2c >= 0).all(dim=1)
     perm = _polish_2swap(W, _complete_greedy(r2c, c2r), max_swaps=2 * n)
     return MatchResult(perm, converged, prices, rounds.long())
+
+
+match_auction_fused.warm_entries = 0  # calls that entered the ε schedule at its tail
 
 
 MatcherFn = Callable[..., MatchResult]

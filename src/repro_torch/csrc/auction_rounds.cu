@@ -9,8 +9,10 @@
 // auction_bid/ref.py::auction_rounds_ref, which this kernel matches bit for
 // bit in row2col, col2row, prices, rounds and bids, ties included.
 //
-// Semantics (as the reference): prices start at 0 and persist across phases
-// (so do the row profits of the forward-reverse auction). Each phase restarts
+// Semantics (as the reference): prices start at prices0 (a warm start, the
+// online controller's carry; 0 when the pointer is null) and persist across
+// phases; the row profits of the forward-reverse auction start at 0 and
+// persist too. Each phase restarts
 // the assignment on the row side and repeats rounds until every row is
 // assigned or max_iters rounds have run. One forward round:
 //   1. every unassigned row i finds the top two of W[i, :] - prices (first
@@ -68,7 +70,7 @@ size_t smem_bytes(int n) {
 
 __global__ void __launch_bounds__(kThreads)
 auction_rounds_kernel(const float* __restrict__ W, const float* __restrict__ eps,
-                      int* __restrict__ r2c_out, int* __restrict__ c2r_out,
+                      const float* __restrict__ prices0, int* __restrict__ r2c_out, int* __restrict__ c2r_out,
                       float* __restrict__ prices_out, int* __restrict__ rounds_out,
                       unsigned long long* __restrict__ bids_out, int n, int P, int max_iters,
                       int reverse) {
@@ -97,7 +99,7 @@ auction_rounds_kernel(const float* __restrict__ W, const float* __restrict__ eps
     Ws[i * s + (t - i * n)] = Wb[t];
   }
   for (int j = tid; j < n; j += nth) {
-    prices[j] = 0.f;
+    prices[j] = prices0 ? prices0[b * n + j] : 0.f;
     profits[j] = 0.f;
     key[j] = 0ull;
   }
@@ -202,7 +204,8 @@ auction_rounds_kernel(const float* __restrict__ W, const float* __restrict__ eps
 
 }  // namespace
 
-extern "C" int auction_rounds_launch(const void* W, const void* eps, void* r2c, void* c2r,
+extern "C" int auction_rounds_launch(const void* W, const void* eps, const void* prices0,
+                                     void* r2c, void* c2r,
                                      void* prices, void* rounds, void* bids, int B, int n, int P,
                                      int max_iters, int reverse, void* stream) {
   if (n < 1 || n > kMaxN || B < 1 || P < 1 || max_iters < 0)
@@ -215,7 +218,8 @@ extern "C" int auction_rounds_launch(const void* W, const void* eps, void* r2c, 
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   auction_rounds_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(W), static_cast<const float*>(eps), static_cast<int*>(r2c),
+      static_cast<const float*>(W), static_cast<const float*>(eps),
+      static_cast<const float*>(prices0), static_cast<int*>(r2c),
       static_cast<int*>(c2r), static_cast<float*>(prices), static_cast<int*>(rounds),
       static_cast<unsigned long long*>(bids), n, P, max_iters, reverse);
   return static_cast<int>(cudaGetLastError());

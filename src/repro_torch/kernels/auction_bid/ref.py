@@ -97,11 +97,12 @@ def _reverse_round(Wt, row2col, col2row, prices, profits, eps, lanes, top2):
 
 
 def auction_rounds_ref(W: torch.Tensor, eps: torch.Tensor, max_iters: int, *, reverse: bool,
-                       top2=masked_row_top2_ref):
+                       top2=masked_row_top2_ref, prices0: torch.Tensor | None = None):
     """Every ε-phase and bidding round of the auction on each lane of ``W``.
 
     ``W`` is (B, n, n) float32 and ``eps`` the (B, P) ε schedule. Prices
-    start at 0 and persist across phases; each phase restarts the
+    start at ``prices0`` ((B, n) float32, a warm start; None: 0) and persist
+    across phases; row profits start at 0. Each phase restarts the
     assignment and runs rounds until every row is assigned or ``max_iters``
     rounds have run. With ``reverse`` the rounds are those of the combined
     forward-reverse auction: rows and columns take turns bidding, a lane
@@ -123,7 +124,8 @@ def auction_rounds_ref(W: torch.Tensor, eps: torch.Tensor, max_iters: int, *, re
     B, n, _ = W.shape
     dev = W.device
     Wt = W.transpose(1, 2).contiguous() if reverse else None
-    prices = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    prices = (torch.zeros((B, n), dtype=torch.float32, device=dev) if prices0 is None
+              else prices0.to(torch.float32).clone())
     profits = torch.zeros((B, n), dtype=torch.float32, device=dev) if reverse else None
     rounds = torch.zeros((B,), dtype=torch.int64, device=dev)
     bids = torch.zeros((B,), dtype=torch.int64, device=dev)

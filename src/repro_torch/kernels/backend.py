@@ -47,8 +47,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # W, prices, v1, v2, j1, B, n, m, stream
     "auction_bid_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # W, eps, r2c, c2r, prices, rounds, bids, B, n, P, max_iters, reverse, stream
-    "auction_rounds_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # W, eps, prices0 (or null), r2c, c2r, prices, rounds, bids, B, n, P, max_iters, reverse, stream
+    "auction_rounds_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # W, prices0, eps, r2c, c2r, prices, rounds, bids, B, n, P, max_iters, cluster, stream
     "auction_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, BH, group, Sq, Sk, D, scale, causal, window, dtype, stream

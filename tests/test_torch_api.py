@@ -9,6 +9,7 @@ from repro_torch.api import (  # noqa: E402
     Problem,
     SolveOptions,
     dispatch_many_torch,
+    get_solver,
     list_solvers,
     solve,
     solve_many,
@@ -100,10 +101,15 @@ def test_exhausted_equalize_finished_on_host():
 
 
 def test_registry_and_options():
-    assert list_solvers() == [
+    # The online solvers register when ``repro_torch.online`` is first
+    # imported (by another test file in this process, or by ``get_solver``).
+    builtin = [n for n in list_solvers() if not n.startswith("spectra_online")]
+    assert builtin == [
         "baseline_less", "rotor", "rotor_vlb", "spectra", "spectra_eclipse", "spectra_no_eq", "spectra_pp",
         "spectra_torch",
     ]
+    get_solver("spectra_online_torch")
+    assert {"spectra_online", "spectra_online_torch"} <= set(list_solvers())
     pp = solve(Problem(np.eye(3), 2, 0.01), solver="spectra_pp")  # ported with the host solvers
     assert pp.validated and pp.backend == "numpy" and pp.makespan == pytest.approx(0.51)  # wrap splits I
     with pytest.raises(KeyError):

@@ -100,6 +100,10 @@ def test_import_loads_no_jax_and_no_reference(probe):
         "repro_torch.core.baselines", "repro_torch.core.improved", "repro_torch.core.schedule_ir",
         "repro_torch.obs.trace", "repro_torch.fabric.timeline", "repro_torch.fabric.simulator",
         "repro_torch.api.registry", "repro_torch.api.batch",
+        "repro_torch.online", "repro_torch.online.state", "repro_torch.online.controller",
+        "repro_torch.online.solvers", "repro_torch.core.torchopt.online_torch",
+        "repro_torch.scenarios", "repro_torch.scenarios.spec", "repro_torch.scenarios.registry",
+        "repro_torch.scenarios.library", "repro_torch.scenarios.runner", "repro_torch.traffic.hlo_traffic",
     ):
         assert name in probe["modules"]
 

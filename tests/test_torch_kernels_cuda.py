@@ -85,6 +85,32 @@ def test_rounds_kernel_equals_plain(cuda, n, reverse):
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("n", [1, 32, 64, 100, 128])
+def test_rounds_kernel_warm_prices_equal_plain(cuda, n, reverse):
+    """``prices0`` (a previous call's final prices, at the M-bonus scale, and
+    a strided view of them) bit for bit against the plain version; a zeros
+    ``prices0`` equals ``None``. Each launch with prices counts as warm."""
+    rng = np.random.default_rng(n + 1000)
+    W = torch.from_numpy(np.stack([_bonus_weights(rng, n), _bonus_weights(rng, n, k=3),
+                                   rng.integers(0, 3, (n, n)).astype(np.float32)])).to(cuda)
+    eps = _eps_schedule(W, default_num_phases(n)).contiguous()
+    mi = default_max_iters(n)
+    W2 = (W * (1.0 + 0.01 * torch.rand_like(W))).contiguous()
+    p0 = auction_rounds(W2, eps, mi, reverse=reverse)[2]
+    for prices0 in (p0, torch.stack([p0, p0], dim=2)[:, :, 0]):
+        before = auction_rounds.warm_launches
+        got = auction_rounds(W, eps, mi, reverse=reverse, prices0=prices0)
+        torch.cuda.synchronize()
+        assert auction_rounds.warm_launches == before + 1
+        for g, w in zip(got, auction_rounds_ref(W, eps, mi, reverse=reverse, prices0=prices0)):
+            assert torch.equal(g, w)
+    cold = auction_rounds(W, eps, mi, reverse=reverse)
+    zeros = auction_rounds(W, eps, mi, reverse=reverse, prices0=torch.zeros_like(p0))
+    for c, z in zip(cold, zeros):
+        assert torch.equal(c, z)
+
+
 @pytest.mark.parametrize("B,n", [(4, 160), (4, 256), (4, 512)])
 def test_bid_kernel_equals_plain_above_128(cuda, B, n):
     """The op at the widths the round loop gives it above n = 128: random

@@ -163,16 +163,22 @@ def test_rotor_extras_options_match_reference():
 
 
 def test_list_solvers_is_the_reference_list_with_spectra_torch():
-    """The reference's built-in list, read in a fresh process: in this one,
-    other test files may have registered more (``repro.online`` adds its
-    solvers on import; tests add their own)."""
-    probe = "import json; from repro.api import list_solvers; print(json.dumps(list_solvers()))"
+    """Both built-in lists, each read in a fresh process (in this one, other
+    test files may have registered more; tests add their own), before and
+    after the online package registers its solvers on import
+    (``repro.online`` / ``repro_torch.online``)."""
+    probe = ("import json, sys; api = __import__(sys.argv[1] + '.api', fromlist=['api']); before = api.list_solvers(); "
+             "__import__(sys.argv[1] + '.online'); print(json.dumps([before, api.list_solvers()]))")
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"), JAX_PLATFORMS="cpu")
-    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True, env=env, timeout=300)
-    assert out.returncode == 0, out.stderr
-    builtin = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "spectra_jax" in builtin
-    assert api.list_solvers() == sorted("spectra_torch" if n == "spectra_jax" else n for n in builtin)
+    lists = {}
+    for pkg in ("repro", "repro_torch"):
+        out = subprocess.run([sys.executable, "-c", probe, pkg], capture_output=True, text=True, env=env, timeout=300)
+        assert out.returncode == 0, out.stderr
+        lists[pkg] = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "spectra_jax" in lists["repro"][0] and "spectra_online_jax" in lists["repro"][1]
+    for ref, port in zip(lists["repro"], lists["repro_torch"]):
+        assert port == sorted(n.replace("_jax", "_torch") for n in ref)
+    assert set(lists["repro_torch"][0]) <= set(api.list_solvers())
 
 
 def test_fig2_through_every_solver_and_solve_all():

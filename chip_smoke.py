@@ -96,25 +96,47 @@
    non-zero ``prices0`` against its plain version, bit for bit (n = 32, 64,
    100; forward and forward-reverse; ``None`` equal to zeros). Then
    ``run_scenario(name, solver="spectra_torch", online=True,
-   simulate=True)`` on gpt, moe, benchmark, moe_phases, uniform,
-   benchmark_large and permutations_large at their registered n, s, δ and
-   period count (the support cache at its default of 8), and moe and
-   permutations_large again with ``warm_prices=True``, each with the
+   simulate=True, flowsim=True)`` on gpt, moe, benchmark, moe_phases,
+   uniform, benchmark_large and permutations_large at their registered n,
+   s, δ and period count (the support cache at its default of 8), and moe
+   and permutations_large again with ``warm_prices=True``, each with the
    counters set to 0 just before it: every online period at most its
    stateless one and replayed to ``demand_met`` from the carried state,
    reuse and δ avoided on gpt and moe, ``auction_rounds`` launched with
    ``prices0`` and ``auction_fused`` entered at the tail of its ε schedule
-   on the warm runs, no ``masked_row_top2``. The scan's host reads are
-   counted a period (``torch.cuda.set_sync_debug_mode``). On the five
-   scenarios with n <= 100 the card's scan is held to the plain CPU path
-   (``warm``, ``cache_hit``, ``k``, ``reuse_count`` exact, makespans to
-   1e-4), which a child process of this script computes while the card
-   runs the other phases. Prints per scenario the online pass's wall, ms
-   and host reads a period, bidding rounds, warm share, cache hits, reuse,
-   δ avoided and the online/stateless totals, and one ``{"online": ...}``
-   line.
-11. Prints one ``{"kernels": [...]}`` line (launches split by path for
-   the auction kernels and ``flash_attention``) and, last, the ``{"ok": true, "device": {...}}`` line.
+   on the warm runs, no ``masked_row_top2``. Every run passes
+   ``attribution_summary()`` (the identity at 1e-4) and
+   ``warning_counters()`` (no warnings); every period's flow replay
+   delivers every flow in full and finishes when ``fabric.simulate`` does.
+   The scan's host reads are counted a period
+   (``torch.cuda.set_sync_debug_mode``), the flow replay's host time is
+   timed a period. On the five scenarios with n <= 100 the card's scan is
+   held to the plain CPU path (``warm``, ``cache_hit``, ``k``,
+   ``reuse_count`` exact, makespans to 1e-4), and so are the FCT p50 / p99
+   and the attribution shares (1e-4 relative), which a child process of
+   this script computes while the card runs the other phases. Prints per
+   scenario the online pass's wall, ms and host reads a period, bidding
+   rounds, warm share, cache hits, reuse, δ avoided, the online/stateless
+   totals, the FCT quantiles and attribution shares, and one
+   ``{"online": ...}`` line.
+11. The dashboard: ``repro_torch.obs.dashboard.main(["moe", "--solver",
+   "spectra_torch", "--online", "--html", <tmp>/moe.html])`` exits 0 and
+   writes a report naming every switch.
+12. The serving plane (``phase_serving``): the double-buffered
+   ``ScheduleServer`` on 4 batches of B = 8 moe_phases matrices at n = 64
+   with the install latency set to a batch's mean solve time, sync against
+   async in turns (identical results, async at least 1.3× faster); an open
+   loop of ``mixed_profile(n_small=32, n_large=64)`` at half the rate async
+   sustained, with a schedule cache and admission control (nothing shed);
+   a ``SessionManager`` on ``spectra_online_torch`` with two tenants whose
+   decisions equal the CPU child's. It must launch ``auction_rounds`` and no
+   ``masked_row_top2``. Prints the walls and their ratio, schedules/s, the
+   cache hit rate, queue-wait / device / e2e p50 and p99, and one
+   ``{"serving": ...}`` line.
+13. Prints one ``{"kernels": [...]}`` line (launches split by path for
+   the auction kernels, the online path with its flow replay, the
+   dashboard and the serving phase among them, and for ``flash_attention``)
+   and, last, the ``{"ok": true, "device": {...}}`` line.
    Any failed check exits non-zero.
 
 Without a CUDA device, or without the repository beside it, it fails.
@@ -125,6 +147,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -1606,34 +1629,87 @@ def phase_solver_layer(seed: int) -> dict:
 ONLINE_SCENARIOS = ("gpt", "moe", "benchmark", "moe_phases", "uniform", "benchmark_large", "permutations_large")
 ONLINE_CPU = ("gpt", "moe", "benchmark", "moe_phases", "uniform")  # n <= 100: held against the plain CPU path
 ONLINE_FIELDS = ("warm", "cache_hit", "k", "reuse_count", "makespan", "stateless_makespan")
+SESSIONS = (("gpt", 32), ("moe_phases", 64))  # the serving phase's session tenants: (scenario, n)
+SESSION_PERIODS = 6
+SESSION_FIELDS = ("warm", "cache_hit", "k", "reuse_count")
+# The flow replay's FCT quantiles and the attribution shares of both passes,
+# held card against CPU on the n <= 100 scenarios.
+FLOW_KEYS = ("fct_p50", "fct_p99", "transmission_share", "delta_share", "idle_share",
+             "online_transmission_share", "online_delta_share", "online_idle_share")
 
 
-def online_scan_kwargs(trace) -> dict:
-    """What ``run_scenario(..., online=True)`` hands ``spectra_online_scan``
-    for a registered scenario with default options."""
-    from repro_torch.core.torchopt.matching import default_matcher
+def flow_numbers(rep) -> dict:
+    """FCT p50 / p99 of a ``flowsim=True`` run and its attribution shares."""
+    fs, att = rep.flowsim_summary(), rep.attribution_summary()
+    return {k: float(fs[k] if k.startswith("fct") else att[k]) for k in FLOW_KEYS}
 
-    units, _, delta = trace.normalized()
-    deltas = np.broadcast_to(np.asarray(delta, dtype=np.float64), (trace.T,))
-    return dict(Ds=units.astype(np.float32), s=trace.spec.s, deltas=deltas.astype(np.float32),
-                matcher=default_matcher(trace.n), cache_size=8)
+
+def run_sessions(options):
+    """A ``SessionManager`` on ``spectra_online_torch`` serving two tenants
+    (``SESSIONS``, ``SESSION_PERIODS`` periods each, submitted up front and
+    drained fairly). Returns the manager and its ``(tenant, report)`` list."""
+    from repro_torch.scenarios import make_trace
+    from repro_torch.serve import SessionManager
+
+    mgr = SessionManager(4, 0.01, solver="spectra_online_torch", options=options)
+    for name, n in SESSIONS:
+        for D in make_trace(name, n=n, periods=SESSION_PERIODS).normalized()[0]:
+            mgr.submit(name, D)
+    return mgr, mgr.drain()
+
+
+def cpu_scenario(name: str) -> dict:
+    """One ``ONLINE_CPU`` scenario on the plain CPU path: ``run_scenario(name,
+    solver="spectra_torch", online=True, flowsim=True)``, its scan's
+    decisions and makespans, FCT quantiles and attribution shares; or, for
+    ``name="sessions"``, the sessions' decisions."""
+    import repro_torch.core.torchopt.online_torch as online_torch
+    from repro_torch.api import SolveOptions
+    from repro_torch.scenarios import run_scenario
+
+    torch.set_num_threads(1)
+    cpu = SolveOptions(extra={"device": "cpu"})
+    out, scanned = {}, {}
+    t0 = time.perf_counter()
+    if name == "sessions":
+        _, served = run_sessions(cpu)
+        for tenant, _ in SESSIONS:
+            for f in SESSION_FIELDS:
+                out[f"session.{tenant}.{f}"] = np.array([r.extras[f] for t, r in served if t == tenant])
+        out["session.seconds"] = np.float64(time.perf_counter() - t0)
+        return out
+    real_scan = online_torch.spectra_online_scan
+
+    def capture(*args, **kw):
+        res, fin = real_scan(*args, **kw)
+        scanned["res"] = res
+        return res, fin
+
+    online_torch.spectra_online_scan = capture
+    try:
+        rep = run_scenario(name, solver="spectra_torch", online=True, flowsim=True, options=cpu)
+    finally:
+        online_torch.spectra_online_scan = real_scan
+    for f in ONLINE_FIELDS:
+        out[f"{name}.{f}"] = getattr(scanned["res"], f)[0].numpy()
+    for k, v in flow_numbers(rep).items():
+        out[f"{name}.{k}"] = np.float64(v)
+    out[f"{name}.seconds"] = np.float64(time.perf_counter() - t0)
+    return out
 
 
 def cpu_online(out_path: str) -> None:
-    """``--cpu-online OUT``: the online scan of each ``ONLINE_CPU`` scenario
-    on the plain CPU path, its decisions and makespans saved to OUT (.npz).
-    ``main`` runs this in a child process while the card works."""
-    from repro_torch.core.torchopt.online_torch import spectra_online_scan
-    from repro_torch.scenarios import make_trace
+    """``--cpu-online OUT``: ``cpu_scenario`` of each ``ONLINE_CPU`` scenario
+    and of the sessions, in three worker processes (the two slow scenarios,
+    moe and benchmark, one each), saved to OUT (.npz). ``main`` runs this in
+    a child process while the card works."""
+    import multiprocessing as mp
 
-    torch.set_num_threads(1)
+    jobs = sorted(ONLINE_CPU + ("sessions",), key=lambda j: j not in ("moe", "benchmark"))
     out = {}
-    for name in ONLINE_CPU:
-        t0 = time.perf_counter()
-        res, _ = spectra_online_scan(device="cpu", **online_scan_kwargs(make_trace(name)))
-        for f in ONLINE_FIELDS:
-            out[f"{name}.{f}"] = getattr(res, f)[0].numpy()
-        out[f"{name}.seconds"] = np.float64(time.perf_counter() - t0)
+    with mp.get_context("spawn").Pool(3) as pool:
+        for part in pool.imap_unordered(cpu_scenario, jobs):
+            out.update(part)
     np.savez(out_path, **out)
 
 
@@ -1645,25 +1721,36 @@ def phase_online(rng, cpu_child, cpu_path: str) -> dict:
        ``auction_rounds_ref``, bit for bit, forward and forward-reverse, at
        n = 32, 64 and 100; ``prices0=None`` equal to a zeros ``prices0``.
     2. ``run_scenario(name, solver="spectra_torch", online=True,
-       simulate=True)`` on the seven scenarios at their registered n, s, δ
-       and period count, the support cache at its default of 8, counting the
-       scan's host reads; then moe and permutations_large again with
-       ``warm_prices=True``. Counters set to 0 just before each run and read
-       just after. Every online period must be at most its stateless
-       period and replay to ``demand_met`` from the carried state; gpt and
-       moe must reuse configurations and avoid δ; the warm runs must launch
-       ``auction_rounds`` with ``prices0`` and enter ``auction_fused``'s ε
-       schedule at its tail.
+       simulate=True, flowsim=True)`` on the seven scenarios at their
+       registered n, s, δ and period count, the support cache at its default
+       of 8, counting the scan's host reads; then moe and permutations_large
+       again with ``warm_prices=True``. Counters set to 0 just before each
+       run and read just after. Every online period must be at most its
+       stateless period and replay to ``demand_met`` from the carried state;
+       gpt and moe must reuse configurations and avoid δ; the warm runs must
+       launch ``auction_rounds`` with ``prices0`` and enter
+       ``auction_fused``'s ε schedule at its tail. Every run must pass
+       ``attribution_summary()`` (the identity at 1e-4 on every period of
+       both passes) with no solver warnings, and every period's flow replay
+       must deliver every flow in full (per flow and in aggregate, to 1e-4)
+       and finish when ``fabric.simulate`` does (1e-4); ``summary()`` must
+       carry ``warnings`` and the flow keys. The flow replay's host time is
+       timed a period.
     3. CUDA events around the period's sequential loops at n = 512: the warm
        REFINE over k rounds and over all n, and the LPT loop.
     4. The card's scan on the n <= 100 scenarios against the plain CPU path's
        (``cpu_online``, run in ``cpu_child`` meanwhile): ``warm``,
-       ``cache_hit``, ``k`` and ``reuse_count`` exact, the makespans to 1e-4.
+       ``cache_hit``, ``k`` and ``reuse_count`` exact, the makespans to 1e-4;
+       the FCT p50 / p99 and the attribution shares to 1e-4 relative (with
+       an absolute floor of 1e-6 for shares below 1e-2: an idle share is
+       float32 noise around 0).
     """
     import repro_torch.core.torchopt.online_torch as online_torch
+    import repro_torch.flowsim as flowsim
     from repro_torch.api import SolveOptions
     from repro_torch.core.torchopt.matching import (_eps_schedule, default_max_iters, default_num_phases,
                                                     match_auction_fused)
+    from repro_torch.fabric import simulate
     from repro_torch.kernels.auction_bid import auction_rounds, auction_rounds_ref, masked_row_top2
     from repro_torch.kernels.auction_fused import fused_auction
     from repro_torch.scenarios import get_scenario, run_scenario
@@ -1708,7 +1795,16 @@ def phase_online(rng, cpu_child, cpu_path: str) -> dict:
         scanned["res"] = res
         return res, fin
 
+    real_flows, flow_s = flowsim.simulate_flows, []
+
+    def timed_flows(*args, **kw):  # the flow replay's host time, a period
+        t0 = time.perf_counter()
+        out = real_flows(*args, **kw)
+        flow_s.append(time.perf_counter() - t0)
+        return out
+
     online_torch.spectra_online_scan = capture
+    flowsim.simulate_flows = timed_flows
     launches = {"auction_bid": 0, "auction_rounds": 0, "auction_fused": 0, "auction_fused_cluster": 0,
                 "auction_rounds_warm": 0, "auction_fused_warm_entries": 0}
     rows = {}
@@ -1719,8 +1815,9 @@ def phase_online(rng, cpu_child, cpu_path: str) -> dict:
             masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = 0
             fused_auction.cluster_launches = auction_rounds.warm_launches = match_auction_fused.warm_entries = 0
             torch.cuda.synchronize()
+            flow_s.clear()
             t0 = time.perf_counter()
-            rep = run_scenario(name, solver="spectra_torch", online=True, simulate=True, options=opts)
+            rep = run_scenario(name, solver="spectra_torch", online=True, simulate=True, flowsim=True, options=opts)
             wall = time.perf_counter() - t0
             got = {"auction_bid": masked_row_top2.launches, "auction_rounds": auction_rounds.launches,
                    "auction_fused": fused_auction.launches, "auction_fused_cluster": fused_auction.cluster_launches,
@@ -1747,6 +1844,30 @@ def phase_online(rng, cpu_child, cpu_path: str) -> dict:
                 check(got[key] > 0 and got[kernel] > 0, f"{name} warm prices: launches {got}")
             reads = [p.host_reads for p in per]
             check(all(r is not None for r in reads), f"{name}: host reads not counted")
+            tag = name + (" warm_prices" if warm_prices else "")
+            units = rep.trace.normalized()[0]
+            check(len(rep.flowsim_reports) == spec.periods and len(flow_s) == spec.periods,
+                  f"{tag}: {len(rep.flowsim_reports)} flow replays for {spec.periods} periods")
+            for q, fs, r in zip(rep.periods, rep.flowsim_reports, rep.reports):
+                check(fs.conserved and fs.completed == fs.num_flows and fs.port_ok,
+                      f"{tag} period {q.period}: flow replay conserved={fs.conserved}, {fs.completed} of "
+                      f"{fs.num_flows} flows complete")
+                per_flow = float(np.max(np.abs(fs.delivered - fs.flow_size) / np.maximum(fs.flow_size, 1.0)))
+                total = abs(fs.delivered_total - fs.demand_total) / max(fs.demand_total, 1.0)
+                check(per_flow <= 1e-4 and total <= 1e-4,
+                      f"{tag} period {q.period}: bytes not conserved (per flow {per_flow:.3g}, total {total:.3g})")
+                finish = simulate(r, units[q.period], tol=1e-4).finish_time
+                check(abs(fs.finish_time - finish) <= 1e-4 * max(finish, 1.0),
+                      f"{tag} period {q.period}: flow replay finishes at {fs.finish_time}, simulate at {finish}")
+            attribution = rep.attribution_summary()  # raises unless the identity holds at 1e-4
+            check(attribution["max_identity_residual"] <= 1e-4
+                  and attribution["online_max_identity_residual"] <= 1e-4, f"{tag}: attribution {attribution}")
+            warnings = rep.warning_counters()
+            check(warnings.total == 0, f"{tag}: solver warnings {warnings.export()}")
+            head = rep.summary()
+            check(head["warnings"] == 0 and head["conserved"] and np.isfinite(head["fct_p50"])
+                  and np.isfinite(head["fct_p99"]), f"{tag}: summary {head}")
+            flows = flow_numbers(rep)
             summary = rep.online_summary()
             row = dict(
                 n=spec.n, s=spec.s, periods=spec.periods, delta=spec.delta, warm_prices=warm_prices,
@@ -1757,9 +1878,10 @@ def phase_online(rng, cpu_child, cpu_path: str) -> dict:
                 warm_share=float(np.mean([p.warm for p in per])), cache_hits=int(sum(p.cache_hit for p in per)),
                 k=[p.k for p in per], reuse=rep.total_reuse, delta_avoided=rep.total_delta_avoided,
                 online_total=summary["online_total_makespan"], stateless_total=summary["stateless_total_makespan"],
-                launches=got,
+                launches=got, flowsim_ms_per_period=[s * 1e3 for s in flow_s],
+                flowsim_s=float(sum(flow_s)), flows=int(rep.flowsim_summary()["flows"]), **flows,
             )
-            rows[name + (" warm_prices" if warm_prices else "")] = row
+            rows[tag] = row
             print(f"online {name}{' warm_prices' if warm_prices else ''} n={spec.n} s={spec.s} T={spec.periods}: "
                   f"online pass {rep.online_runtime_s * 1e3:.1f} ms ({row['ms_per_period']:.1f} ms a period), "
                   f"host reads a period {row['host_reads_per_period']:.1f} ({reads}; {sum(reads)} over the trace), "
@@ -1769,10 +1891,17 @@ def phase_online(rng, cpu_child, cpu_path: str) -> dict:
                   f"total {row['online_total']:.6f}/{row['stateless_total']:.6f} = "
                   f"{row['online_total'] / row['stateless_total']:.4f}; stateless pass {rep.runtime_s * 1e3:.1f} ms; "
                   f"launches {got}")
+            print(f"flowsim {tag}: {row['flows']} flows over {spec.periods} periods, FCT p50 {flows['fct_p50']:.6g} "
+                  f"p99 {flows['fct_p99']:.6g}; attribution serve/δ/idle "
+                  f"{flows['transmission_share']:.6f}/{flows['delta_share']:.6f}/{flows['idle_share']:.3g}, online "
+                  f"{flows['online_transmission_share']:.6f}/{flows['online_delta_share']:.6f}/"
+                  f"{flows['online_idle_share']:.3g}; flow replay "
+                  f"{', '.join(f'{s * 1e3:.1f}' for s in flow_s)} ms a period; warnings 0")
             if name in ONLINE_CPU and not warm_prices:
                 rows[name]["card"] = {f: getattr(scanned["res"], f)[0].cpu().numpy() for f in ONLINE_FIELDS}
     finally:
         online_torch.spectra_online_scan = real_scan
+        flowsim.simulate_flows = real_flows
 
     # The period's sequential loops at n = 512 (permutations_large, period 0):
     # the warm REFINE over the previous set's k rounds (what the port runs)
@@ -1809,12 +1938,174 @@ def phase_online(rng, cpu_child, cpu_path: str) -> dict:
         check(rel <= 1e-4, f"online {name}: makespans differ from the CPU's by {rel:.3g} relative")
         rows[name]["cpu_rel"] = rel
         rows[name]["cpu_s"] = float(cpu[f"{name}.seconds"])
+        flow_rel = 0.0
+        for k in FLOW_KEYS:
+            want = float(cpu[f"{name}.{k}"])
+            diff = abs(rows[name][k] - want)
+            check(diff <= 1e-4 * max(abs(want), 1e-2), f"online {name}: {k} on the card {rows[name][k]!r} vs the "
+                                                      f"CPU {want!r}")
+            flow_rel = max(flow_rel, diff / max(abs(want), 1e-2))
+        rows[name]["cpu_flow_rel"] = flow_rel
         print(f"online {name}: card == plain CPU path in warm, cache_hit, k, reuse_count; makespans max relative "
-              f"difference {rel:.3g} (CPU scan {float(cpu[f'{name}.seconds']):.1f} s)")
+              f"difference {rel:.3g}; FCT p50/p99 and attribution shares max relative difference {flow_rel:.3g} "
+              f"(CPU run {float(cpu[f'{name}.seconds']):.1f} s)")
     check(launches["auction_rounds"] > 0 and launches["auction_fused"] > 0 and launches["auction_bid"] == 0,
           f"online path launches {launches}")
     print(f"online: waited {time.perf_counter() - t0:.1f} s for the CPU scans; launches {launches}")
     return dict(launches=launches, rows=rows, loops=loops, warm_check_cases=cases, warm_check_max_abs_err=max_err)
+
+
+def phase_dashboard(tmp_dir: str) -> dict:
+    """``python -m repro_torch.obs.dashboard moe --solver spectra_torch
+    --online --html <tmp>/moe.html`` on the card, through its ``main``: it
+    must exit 0 and write a report that names every switch."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels.auction_bid import auction_rounds, masked_row_top2
+    from repro_torch.kernels.auction_fused import fused_auction
+    from repro_torch.obs.dashboard import main as dashboard
+
+    path = Path(tmp_dir) / "moe.html"
+    masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = dashboard(["moe", "--solver", "spectra_torch", "--online", "--html", str(path)])
+    wall = time.perf_counter() - t0
+    launches = {"auction_bid": masked_row_top2.launches, "auction_rounds": auction_rounds.launches,
+                "auction_fused": fused_auction.launches}
+    check(rc == 0, f"the dashboard exited with {rc}")
+    check(path.exists(), "the dashboard wrote no HTML report")
+    text = path.read_text()
+    check(all(f"ocs{h}" in text for h in range(4)), "the HTML report does not name every switch")
+    check(launches["auction_rounds"] > 0 and launches["auction_bid"] == 0, f"dashboard launches {launches}")
+    lines = out.getvalue().splitlines()
+    print(f"dashboard moe --solver spectra_torch --online: exit 0 in {wall:.1f} s, {path.name} "
+          f"{len(text)} bytes naming ocs0..ocs3; launches {launches}; {lines[0]} | {lines[1].strip()} | "
+          f"{lines[2].strip()}")
+    return launches
+
+
+def phase_serving(seed: int, cpu_path: str) -> dict:
+    """The serving plane on the card (``repro_torch.serve``), with the kernels'
+    counters set to 0 just before it and read after it: it must launch
+    ``auction_rounds`` and no ``masked_row_top2``.
+
+    1. Double buffering: 4 batches of B = 8 ``moe_phases`` matrices at
+       n = 64, s = 4, δ = 0.01 through ``ScheduleServer(solver=
+       "spectra_torch")``. One warm batch, then a batch's solve time S
+       (``dispatch_many_torch(...).collect()``, the mean over the 4
+       batches); ``install_latency_s = max(S, 0.01)``. Drained in turns in
+       ``sync``, ``async``, ``async`` and ``sync``: the same tickets and
+       makespans (1e-6) every time, and async at least 1.3× faster than
+       sync over the two drains of each.
+    2. Open loop: ``run_open_loop`` over 3 s of ``mixed_profile(n_small=32,
+       n_large=64, rate=R)`` with R half the schedules/s that async
+       sustained, a ``ScheduleCache(capacity=64)`` and an
+       ``AdmissionController``: nothing shed or degraded, every arrival
+       served, every device report validated (Eq. 3 at 1e-4; cache hits are
+       checked by the cache itself).
+    3. Sessions: ``run_sessions`` on the card; every period validates, the
+       moe_phases tenant has warm periods, and each tenant's ``warm``,
+       ``cache_hit``, ``k`` and ``reuse_count`` equal the CPU child's.
+    """
+    from repro_torch.api import SolveOptions, dispatch_many_torch
+    from repro_torch.kernels.auction_bid import auction_rounds, masked_row_top2
+    from repro_torch.kernels.auction_fused import fused_auction
+    from repro_torch.scenarios import make_trace
+    from repro_torch.serve import (AdmissionController, ScheduleCache, ScheduleServer, make_workload,
+                                   mixed_profile, run_open_loop)
+
+    masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = 0
+    opts = SolveOptions()
+    B, batches = 8, 4
+    mats = make_trace("moe_phases", periods=B * batches, seed=seed).normalized()[0]
+    check(mats.shape == (B * batches, 64, 64), f"serving matrices {mats.shape}")
+    dispatch_many_torch(mats[:B], 4, 0.01, opts).collect()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(batches):  # the batches differ: S is their mean solve time
+        dispatch_many_torch(mats[i * B:(i + 1) * B], 4, 0.01, opts).collect()
+    solve_s = (time.perf_counter() - t0) / batches
+    install = max(solve_s, 0.01)
+    walls, outs = {"sync": [], "async": []}, []
+    for mode in ("sync", "async", "async", "sync"):  # in turns, so drift between the drains cancels
+        srv = ScheduleServer(4, 0.01, mode=mode, options=opts, install_latency_s=install, max_batch=B)
+        check(srv.mode == mode, f"the server runs {srv.mode}, not {mode}")
+        for i, D in enumerate(mats):
+            srv.submit(f"t{i % 2}", D)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.drain()
+        walls[mode].append(time.perf_counter() - t0)
+        check(len(srv.results) == len(mats) and all(r.source == "device" and r.report.validated
+                                                   for r in srv.results.values()),
+              f"{mode}: {len(srv.results)} results of {len(mats)}, or a report not validated")
+        check(srv.metrics.batches == batches, f"{mode}: {srv.metrics.batches} batches")
+        outs.append(sorted((r.ticket, r.makespan) for r in srv.results.values()))
+    rel = max(abs(a[1] - b[1]) / b[1] for out in outs[1:] for a, b in zip(out, outs[0]))
+    check(all([a[0] for a in out] == [b[0] for b in outs[0]] for out in outs[1:]) and rel <= 1e-6,
+          f"async and sync results differ (makespans by {rel:.3g} relative)")
+    ratio = sum(walls["sync"]) / sum(walls["async"])
+    sustained = len(walls["async"]) * len(mats) / sum(walls["async"])
+    print(f"serving double buffer: B={B} x {batches} moe_phases n=64, solve S {solve_s * 1e3:.1f} ms a batch (mean), install "
+          f"{install * 1e3:.1f} ms; in turns sync, async, async, sync: "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in (walls['sync'][0], *walls['async'], walls['sync'][1]))} ms, "
+          f"sync/async {ratio:.3f} (gate 1.3); {sustained:.1f} schedules/s; results identical (makespans max "
+          f"relative difference {rel:.3g})")
+    check(ratio >= 1.3, f"async only {ratio:.3f}x faster than sync")
+
+    rate = 0.5 * sustained
+    wl = make_workload(mixed_profile(n_small=32, n_large=64, rate=rate), duration=3.0, seed=seed, s=4, delta=0.01)
+    cache = ScheduleCache(capacity=64)
+    srv = ScheduleServer(4, 0.01, mode="async", options=opts, install_latency_s=install, max_batch=B, cache=cache,
+                         admission=AdmissionController())
+    t0 = time.perf_counter()
+    m = run_open_loop(srv, wl)
+    loop_s = time.perf_counter() - t0
+    served = list(srv.results.values())
+    check(m["shed"] == 0 and m["degraded"] == 0 and m["schedules"] == len(wl) == len(served),
+          f"open loop: {len(wl)} arrivals, {m['schedules']} served, {m['shed']} shed, {m['degraded']} degraded")
+    check(all(r.report.validated for r in served if r.source == "device"), "open loop: a device report not validated")
+    st = m["stages"]
+    open_loop = dict(rate=rate, arrivals=len(wl), wall_s=loop_s, schedules_per_s=len(wl) / loop_s,
+                     device_served=sum(r.source == "device" for r in served), cache_hit_rate=m["cache_hit_rate"],
+                     batches=m["batches"], **{f"{k}_{q}_ms": st[k][f"{q}_s"] * 1e3
+                                              for k in ("queue_wait", "device", "e2e") for q in ("p50", "p99")})
+    print(f"serving open loop: {len(wl)} arrivals at {rate:.2f}/s over 3 s (mixed_profile n=32/64), served all in "
+          f"{loop_s:.2f} s ({open_loop['schedules_per_s']:.2f} schedules/s), {m['batches']} batches, "
+          f"{open_loop['device_served']} from the card, cache hit rate {m['cache_hit_rate']:.3f}, shed 0; p50/p99 "
+          f"queue wait {open_loop['queue_wait_p50_ms']:.1f}/{open_loop['queue_wait_p99_ms']:.1f} ms, device "
+          f"{open_loop['device_p50_ms']:.1f}/{open_loop['device_p99_ms']:.1f} ms, e2e "
+          f"{open_loop['e2e_p50_ms']:.1f}/{open_loop['e2e_p99_ms']:.1f} ms")
+
+    t0 = time.perf_counter()
+    mgr, served = run_sessions(opts)
+    sessions_s = time.perf_counter() - t0
+    cpu = np.load(cpu_path)
+    stats = mgr.stats()
+    for name, n in SESSIONS:
+        reps = [r for t, r in served if t == name]
+        check(len(reps) == SESSION_PERIODS and all(r.validated and r.solver == "spectra_online_torch" for r in reps),
+              f"session {name}: {len(reps)} periods, or one not validated")
+        for f in SESSION_FIELDS:
+            got = np.array([r.extras[f] for r in reps])
+            check(np.array_equal(got, cpu[f"session.{name}.{f}"]),
+                  f"session {name}: {f} on the card {got.tolist()} vs the CPU {cpu[f'session.{name}.{f}'].tolist()}")
+        print(f"serving session {name} n={n}: {SESSION_PERIODS} periods validated, warm "
+              f"{[bool(r.extras['warm']) for r in reps]}, k {[r.extras['k'] for r in reps]}, reuse "
+              f"{[r.extras['reuse_count'] for r in reps]}, δ avoided {stats[name]['delta_avoided']:.4g}; decisions "
+              f"== the CPU's")
+    check(stats["moe_phases"]["warm"] > 0, f"session moe_phases: no warm period ({stats['moe_phases']})")
+    launches = {"auction_bid": masked_row_top2.launches, "auction_rounds": auction_rounds.launches,
+                "auction_fused": fused_auction.launches}
+    check(launches["auction_rounds"] > 0 and launches["auction_bid"] == 0, f"serving launches {launches}")
+    print(f"serving sessions: {2 * SESSION_PERIODS} periods in {sessions_s * 1e3:.1f} ms (CPU child "
+          f"{float(cpu['session.seconds']):.1f} s); serving launches {launches}")
+    return dict(launches=launches, solve_ms=solve_s * 1e3, install_ms=install * 1e3,
+                sync_ms=[w * 1e3 for w in walls["sync"]], async_ms=[w * 1e3 for w in walls["async"]], ratio=ratio,
+                schedules_per_s=sustained, open_loop=open_loop, sessions_ms=sessions_s * 1e3)
 
 
 def main() -> None:
@@ -1842,14 +2133,17 @@ def main() -> None:
 
     tmp = tempfile.TemporaryDirectory()
     cpu_path = str(Path(tmp.name) / "cpu_online.npz")
+    # Its own process group: stopping it stops its worker processes too.
     cpu_child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--cpu-online", cpu_path],
-                                 env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+                                 env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, start_new_session=True)
     try:
         run_phases(args, t_start, cpu_child, cpu_path)
     finally:
-        if cpu_child.poll() is None:
-            cpu_child.kill()
-            cpu_child.wait()
+        try:
+            os.killpg(cpu_child.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        cpu_child.wait()
         tmp.cleanup()
 
 
@@ -1904,15 +2198,21 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str) -> None:
     t0 = time.perf_counter()
     online = phase_online(np.random.default_rng([18, args.seed]), cpu_child, cpu_path)
     print(f"online phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_dashboard = phase_dashboard(str(Path(cpu_path).parent))
+    serving = phase_serving(args.seed, cpu_path)
+    print(f"dashboard and serving phases: {time.perf_counter() - t0:.1f} s")
     launches["demand_accum"] = demand_accum.launches
 
     bid_main = bid["shapes"][3]  # (4, 512): the widest the round loop serves on the solver layer's path
     by_layer = layer["launches"]
 
-    by_online = online["launches"]
+    by_online = online["launches"]  # the online runs with their flow replay
+    by_serving = serving["launches"]
 
     def paths(key: str) -> dict:
-        return {"solver_buckets": launches[key], "solver_layer": by_layer[key], "online": by_online[key]}
+        return {"solver_buckets": launches[key], "solver_layer": by_layer[key], "online": by_online[key],
+                "dashboard": by_dashboard.get(key, 0), "serving": by_serving.get(key, 0)}
 
     kernels = [
         dict(name="auction_bid", route="cuda", source="src/repro_torch/csrc/auction_bid.cu",
@@ -1962,6 +2262,7 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str) -> None:
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"online": online["rows"], "online_loops_n512": online["loops"]}))
+    print(json.dumps({"serving": {k: v for k, v in serving.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

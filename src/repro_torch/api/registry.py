@@ -124,7 +124,7 @@ def _solve_baseline_less(problem: Problem, options: SolveOptions) -> SolveReport
 # ---------------------------------------------------------------------------
 # Demand-oblivious rotor baselines (RotorNet/Opus lineage): fixed round-robin
 # permutation sequences, no matching solves. The counterpoint SPECTRA is
-# measured against at the flow level (the reference's ``repro.flowsim``).
+# measured against at the flow level (``repro_torch.flowsim``).
 # ---------------------------------------------------------------------------
 
 def _rotor_common(problem: Problem) -> tuple[np.ndarray, float, float, bool]:
@@ -190,10 +190,10 @@ def _solve_rotor_vlb(problem: Problem, options: SolveOptions) -> SolveReport:
     The returned schedule does NOT cover D in the matrix sense (Eq. 3) —
     by design: direct slots are far smaller than skewed entries. Coverage
     validation is skipped (``validated=False``) and correctness is
-    instead the flow-level conservation check of the reference's
-    ``repro.flowsim.simulate_flows`` (not ported yet; it auto-enables VLB
-    via ``extras["indirection"]``): every byte must be delivered. The
-    warning text is the reference's, word for word.
+    instead the flow-level conservation check of
+    ``repro_torch.flowsim.simulate_flows`` (it auto-enables VLB via
+    ``extras["indirection"]``): every byte must be delivered. The warning
+    text is the reference's, word for word.
     """
     D, peak, diag_max, has_diag = _rotor_common(problem)
     base_cycles = int(options.extra.get("rotor_cycles", 2))

@@ -6,8 +6,8 @@ A ``ParallelSchedule`` says *what* each switch serves; this module says
 (reconfigure δ → serve α) and emits one ``CircuitWindow`` per served
 configuration — absolute ``[start, end)`` serve intervals with the δ
 windows in between. ``repro_torch.fabric.simulator.simulate`` (the
-matrix-granularity replay) reads it, and so will the flow-level simulator
-when it is ported: both then agree on when a circuit is up.
+matrix-granularity replay) and ``repro_torch.flowsim`` (the flow-level
+replay) both read it, so they agree on when a circuit is up.
 
 Online replay: ``installed`` carries the configuration left on each
 switch by the previous controller period. A switch whose *first* slot

@@ -4,17 +4,13 @@ The port's counterpart of ``repro.scenarios.runner``: materialize a
 scenario's ``(T, n, n)`` demand trace, push every period through
 ``repro_torch.api.solve_many`` (on ``spectra_torch`` one fused device call
 per shape bucket, on ``options.extra["device"]``, None meaning CUDA),
-optionally replay each period through the event-level simulator, and
-aggregate per-period makespans, lower-bound gaps and, for byte traces, CCT
-seconds under the scenario's ``OCSFabric``. ``online=True`` adds the
-stateful pass: the host ``OnlineController``, or for ``spectra_torch`` the
-device ``spectra_online_scan``.
-
-Not ported yet: the flow-level replay (``flowsim=True``, the reference's
-``repro.flowsim``), ``attribution_summary`` (its ``obs.timeline_table``) and
-``warning_counters`` (its ``obs.metrics``). Each raises
-``NotImplementedError`` naming the missing module, and ``summary()`` leaves
-out the warning tally that needs ``obs.metrics``.
+optionally replay each period through the event-level simulator and the
+flow-level one (``flowsim``), and aggregate per-period makespans,
+lower-bound gaps and, for byte traces, CCT seconds under the scenario's
+``OCSFabric``. ``online=True`` adds the stateful pass: the host
+``OnlineController``, or for ``spectra_torch`` the device
+``spectra_online_scan``. The report's ``warning_counters`` and
+``attribution_summary`` read ``obs.metrics`` and ``obs.timeline_table``.
 """
 
 from __future__ import annotations
@@ -32,12 +28,6 @@ from .registry import Scenario, get_scenario
 from .spec import DemandTrace, TrafficSpec
 
 
-def _not_ported(what: str, module: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs the reference's {module}, which the PyTorch port does not have yet"
-    )
-
-
 @dataclass
 class PeriodResult:
     """One controller period's scheduling outcome."""
@@ -51,6 +41,7 @@ class PeriodResult:
     meta: dict = field(default_factory=dict)
     demand_met: bool | None = None   # simulator verdict (None unless simulated)
     ref_makespan: float = float("nan")  # quality_ref solver's makespan
+    flowsim: Any = None              # FlowSimReport (None unless flowsim=True)
 
 
 @dataclass
@@ -68,6 +59,7 @@ class ScenarioReport:
     num_shape_buckets: int           # solve_many dispatch groups (1 per shape)
     runtime_s: float                 # wall time of the solve_many call
     quality_ref: str | None = None   # reference solver of the quality ratios
+    flowsim_options: Any = None      # resolved FlowSimOptions (None: no flowsim)
 
     @property
     def deltas_units(self) -> np.ndarray:
@@ -125,15 +117,89 @@ class ScenarioReport:
         return float(finite.max()) if len(finite) else float("nan")
 
     def warning_counters(self):
-        raise _not_ported("warning_counters", "repro.obs.metrics")
+        """Solver warnings across all periods, tallied as obs ``Counters``
+        (``matcher_budget_exhausted`` / ``equalize_headroom_exhausted``)."""
+        from ..obs.metrics import warning_counts
+
+        return warning_counts(self.reports)
 
     def attribution_summary(self, tol: float | None = None) -> dict[str, Any]:
-        raise _not_ported("attribution_summary", "repro.obs.timeline_table")
+        """Makespan attribution over the whole trace: where the switch-time
+        budget went (serve / δ paid / idle shares) and the exact LB-gap
+        decomposition, with the identity checked on every period. Expands
+        every period's timeline — materializes lazy device schedules."""
+        from ..obs.timeline_table import attribute_scenario
+
+        att = attribute_scenario(self, tol=tol)
+        att.check()
+        return att.summary()
+
+    @property
+    def flowsim_reports(self) -> list:
+        """Per-period FlowSimReports, trace order (empty when flowsim off)."""
+        return [p.flowsim for p in self.periods if p.flowsim is not None]
+
+    @property
+    def fct_all(self) -> np.ndarray:
+        """Every period's flow completion times pooled into one sample."""
+        fs = self.flowsim_reports
+        if not fs:
+            return np.array([])
+        return np.concatenate([f.fct for f in fs])
+
+    def flowsim_summary(self) -> dict[str, Any]:
+        """Trace-level flow stats: pooled FCT distribution, worst-period
+        CCT, conservation verdict over every period, mean utilization and
+        δ-overhead. Raises if the report was built without flowsim."""
+        from ..flowsim import FlowStats
+
+        fs = self.flowsim_reports
+        if not fs:
+            raise ValueError(
+                "no flow-level results: run_scenario(..., flowsim=True)"
+            )
+        stats = FlowStats.from_sample(self.fct_all)
+        return {
+            "scenario": self.scenario,
+            "solver": self.solver,
+            "periods": len(fs),
+            "flows": int(sum(f.num_flows for f in fs)),
+            "completed": int(sum(f.completed for f in fs)),
+            "fct_p50": stats.p50,
+            "fct_p90": stats.p90,
+            "fct_p99": stats.p99,
+            "fct_mean": stats.mean,
+            "fct_max": stats.max,
+            "cct_max": float(max(f.cct for f in fs)),
+            "cct_mean": float(np.mean([f.cct for f in fs])),
+            "util_mean": float(
+                np.mean([f.utilization.mean() for f in fs])
+            ),
+            "delta_overhead": float(np.mean([f.delta_overhead for f in fs])),
+            # Mean per-period switch-time attribution shares (see
+            # obs.timeline_table): serve + δ + idle = 1 per switch.
+            "delta_share": float(
+                np.mean([f.summary()["delta_share"] for f in fs])
+            ),
+            "idle_share": float(
+                np.mean([f.summary()["idle_share"] for f in fs])
+            ),
+            "indirect_frac": float(
+                np.mean([f.indirect_fraction for f in fs])
+            ),
+            "conserved": bool(all(f.conserved for f in fs)),
+            "residual": float(sum(f.residual for f in fs)),
+        }
 
     def summary(self) -> dict[str, Any]:
-        """Flat aggregate row: the reference's keys but the warning tally."""
+        """Flat aggregate row (what the smoke lane and benchmarks print).
+
+        When the run carried ``flowsim=True`` the row also gets the
+        flow-level headline keys (``fct_p50``/``fct_p99``/``conserved``)
+        from ``flowsim_summary()``.
+        """
         mk = self.makespans
-        return {
+        row = {
             "scenario": self.scenario,
             "solver": self.solver,
             "periods": self.trace.T,
@@ -145,9 +211,26 @@ class ScenarioReport:
             "total_cct_s": self.total_cct_s,
             "buckets": self.num_shape_buckets,
             "runtime_s": self.runtime_s,
+            # Device-vs-host (or any solver-vs-solver) quality: geomean of
+            # per-period makespan ratios against quality_ref; NaN when the
+            # run carried no reference.
             "quality_ratio": self.geomean_quality_ratio,
             "quality_ref": self.quality_ref,
         }
+        # Degraded solves, visible without digging into per-report extras:
+        # total warning count always; the per-category tally when nonzero.
+        warnings = self.warning_counters()
+        row["warnings"] = warnings.total
+        if warnings:
+            row["warning_counts"] = warnings.export()
+        if self.flowsim_reports:
+            fs = self.flowsim_summary()
+            row.update(
+                fct_p50=fs["fct_p50"],
+                fct_p99=fs["fct_p99"],
+                conserved=fs["conserved"],
+            )
+        return row
 
 
 @dataclass
@@ -263,6 +346,7 @@ def run_scenario(
     options: SolveOptions | None = None,
     simulate: bool = False,
     flowsim: bool = False,
+    flowsim_options: Any = None,
     processes: int | None = None,
     quality_ref: str | None = None,
     online: bool = False,
@@ -279,6 +363,15 @@ def run_scenario(
     ``quality_ref`` names a second solver to solve the same trace with, for
     the per-period quality ratios.
 
+    ``flowsim=True`` replays every period at the *flow* level
+    (``repro_torch.flowsim.simulate_flows``): each ``PeriodResult.flowsim``
+    gets a ``FlowSimReport`` (FCT/CCT distributions, utilization,
+    conservation) and the report grows ``flowsim_reports`` / ``fct_all`` /
+    ``flowsim_summary()``. Options resolve from ``flowsim_options`` if
+    given, else from the spec's ``flowsim_params``; solvers that mark
+    ``extras["indirection"]`` (``rotor_vlb``) get 2-hop VLB automatically
+    under the default ``indirection="auto"``.
+
     ``online=True`` (or ``solver="spectra_online[_torch]"``) also runs the
     stateful cross-period controller over the trace — the host
     ``OnlineController`` for host solvers, the device
@@ -286,11 +379,7 @@ def run_scenario(
     ``options.extra["device"]``; with ``options.extra["count_host_reads"]``
     each period's host reads are counted on CUDA) — and returns an
     ``OnlineReport`` whose base fields stay the stateless baseline.
-    ``flowsim=True`` raises ``NotImplementedError``: the flow-level replay
-    is not ported yet.
     """
-    if flowsim:
-        raise _not_ported("run_scenario(flowsim=True)", "repro.flowsim")
     if isinstance(scenario, DemandTrace):
         if overrides:
             raise TypeError("overrides only apply to named scenarios, not traces")
@@ -320,6 +409,14 @@ def run_scenario(
         )
         ref_makespans = [r.makespan for r in ref_reports]
 
+    fs_opts = None
+    if flowsim:
+        from ..flowsim import FlowSimOptions, simulate_flows
+
+        fs_opts = flowsim_options or FlowSimOptions.from_params(
+            spec.flowsim_params
+        )
+
     tracer = get_tracer()
     periods: list[PeriodResult] = []
     for t, rep in enumerate(reports):
@@ -335,6 +432,9 @@ def run_scenario(
                 demand_met = bool(
                     sim(rep, units[t], tol=options.tol(rep.backend)).demand_met
                 )
+            fs_report = None
+            if flowsim:
+                fs_report = simulate_flows(rep, units[t], options=fs_opts)
             periods.append(
                 PeriodResult(
                     period=t,
@@ -346,6 +446,7 @@ def run_scenario(
                     meta=dict(trace.period_meta[t]),
                     demand_met=demand_met,
                     ref_makespan=ref_makespans[t],
+                    flowsim=fs_report,
                 )
             )
     base = dict(
@@ -360,6 +461,7 @@ def run_scenario(
         num_shape_buckets=len(shape_buckets(list(units))),
         runtime_s=runtime_s,
         quality_ref=quality_ref,
+        flowsim_options=fs_opts,
     )
     if not online:
         return ScenarioReport(**base)

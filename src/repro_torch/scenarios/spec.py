@@ -56,9 +56,10 @@ class TrafficSpec:
     units: str = "demand"       # "demand" | "bytes"
     link_bandwidth_Bps: float | None = None  # bytes traces; None → OCSFabric default
     params: Mapping[str, Any] = field(default_factory=dict)  # family kwargs
-    # Flow-level replay knobs (the reference's FlowSimOptions kwargs:
-    # buffer_limit, indirection, line_rate, tol). Carried so specs equal the
-    # reference's; the flow-level replay itself is not ported yet.
+    # Flow-level replay knobs (flowsim.FlowSimOptions kwargs:
+    # buffer_limit, indirection, line_rate, tol) — the defaults
+    # run_scenario(..., flowsim=True) builds its FlowSimOptions from
+    # unless an explicit flowsim_options argument overrides them.
     flowsim_params: Mapping[str, Any] = field(default_factory=dict)
 
     def __post_init__(self) -> None:

@@ -27,6 +27,7 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 raised = None
+server_raised = None
 model_raised = None
 train_raised = None
 trainer_raised = None
@@ -40,6 +41,13 @@ if not torch.cuda.is_available():
         raised = str(e)
     else:
         raised = False
+    from repro_torch.serve import ScheduleServer
+    try:
+        ScheduleServer(2, 0.01)
+    except RuntimeError as e:
+        server_raised = str(e)
+    else:
+        server_raised = False
     try:
         build_model(get_arch("zamba2-1.2b").reduced())
     except RuntimeError as e:
@@ -62,7 +70,7 @@ if not torch.cuda.is_available():
         trainer_raised = str(e)
     else:
         trainer_raised = False
-print(json.dumps({"modules": names, "leaked": leaked, "raised": raised,
+print(json.dumps({"modules": names, "leaked": leaked, "raised": raised, "server_raised": server_raised,
                   "model_raised": model_raised, "train_raised": train_raised,
                   "trainer_raised": trainer_raised, "cuda": torch.cuda.is_available()}))
 """
@@ -104,6 +112,12 @@ def test_import_loads_no_jax_and_no_reference(probe):
         "repro_torch.online.solvers", "repro_torch.core.torchopt.online_torch",
         "repro_torch.scenarios", "repro_torch.scenarios.spec", "repro_torch.scenarios.registry",
         "repro_torch.scenarios.library", "repro_torch.scenarios.runner", "repro_torch.traffic.hlo_traffic",
+        "repro_torch.obs.metrics", "repro_torch.obs.timeline_table", "repro_torch.obs.html",
+        "repro_torch.obs.dashboard", "repro_torch.flowsim", "repro_torch.flowsim.flows",
+        "repro_torch.flowsim.buffers", "repro_torch.flowsim.indirection", "repro_torch.flowsim.report",
+        "repro_torch.flowsim.events", "repro_torch.serve.admission", "repro_torch.serve.cache",
+        "repro_torch.serve.metrics", "repro_torch.serve.server", "repro_torch.serve.sessions",
+        "repro_torch.serve.loadgen",
     ):
         assert name in probe["modules"]
 
@@ -113,6 +127,8 @@ def test_default_device_raises_without_cuda(probe):
         pytest.skip("a CUDA device is present; the default device is usable")
     assert probe["raised"], "solve_many with no device ran on the CPU"
     assert "device='cpu'" in probe["raised"]
+    assert probe["server_raised"], "ScheduleServer with no device fell back to the CPU or to sync"
+    assert "device='cpu'" in probe["server_raised"]
     assert probe["model_raised"], "build_model with no device ran on the CPU"
     assert "device='cpu'" in probe["model_raised"]
     assert probe["train_raised"], "the training launcher with no --device ran on the CPU"

@@ -379,3 +379,63 @@ def test_moe_block_on_the_card_equals_the_cpu(cuda, B, S):
         got, got_stats = gpu(x.to(cuda))
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-5 * float(want.abs().max()))
     assert torch.equal(got_stats["expert_load"].cpu(), want_stats["expert_load"])
+
+
+# ---------------------------------------------------------------------------
+# The serving plane and the flow-level replay on the card.
+# ---------------------------------------------------------------------------
+
+
+def _serving_batch(n=32, B=4, seed=0):
+    from repro_torch.scenarios import make_trace
+
+    return make_trace("moe_phases", n=n, periods=B, seed=seed).normalized()[0]
+
+
+def test_async_server_on_the_card_equals_sync(cuda):
+    """The worker thread solves on the card; sync and async serve the same
+    tickets with the same makespans, and both launch ``auction_rounds``."""
+    from repro_torch.api import SolveOptions
+    from repro_torch.serve import ScheduleServer
+
+    mats = _serving_batch()
+    outs = {}
+    for mode in ("sync", "async"):
+        srv = ScheduleServer(4, 0.01, mode=mode, options=SolveOptions(), max_batch=2,
+                             install_latency_s=0.005)
+        assert srv.mode == mode and srv.device.type == "cuda"
+        before = auction_rounds.launches
+        for i, D in enumerate(mats):
+            srv.submit(f"t{i % 2}", D)
+        res = srv.drain()
+        assert auction_rounds.launches > before
+        assert all(r.report.validated for r in res.values())
+        outs[mode] = sorted((r.ticket, r.makespan, r.num_configs) for r in res.values())
+    assert outs["sync"] == outs["async"] and len(outs["sync"]) == len(mats)
+
+
+def test_flowsim_and_attribution_on_a_card_report(cuda):
+    """A card report (backend "torch") passes attribution and the flow replay
+    at 1e-4, and equals the plain CPU path's to 1e-4."""
+    from repro_torch.api import SolveOptions
+    from repro_torch.fabric import simulate
+    from repro_torch.obs.timeline_table import attribute_scenario
+    from repro_torch.scenarios import run_scenario
+
+    reps = {dev: run_scenario("gpt", solver="spectra_torch", online=True, flowsim=True, simulate=True,
+                              options=SolveOptions(extra={"device": dev}), n=16, periods=3)
+            for dev in ("cuda", "cpu")}
+    card = reps["cuda"]
+    att = attribute_scenario(card)
+    assert att.tol == 1e-4
+    att.check()
+    for p, rep, fs in zip(card.periods, card.reports, card.flowsim_reports):
+        assert fs.conserved and fs.completed == fs.num_flows
+        assert fs.finish_time == pytest.approx(simulate(rep, card.trace.normalized()[0][p.period],
+                                                        tol=1e-4).finish_time, abs=1e-4)
+    for key in ("fct_p50", "fct_p99", "cct_max", "delta_share"):
+        assert card.flowsim_summary()[key] == pytest.approx(reps["cpu"].flowsim_summary()[key], rel=1e-4)
+    got, want = card.attribution_summary(), reps["cpu"].attribution_summary()
+    for key in ("transmission_share", "delta_share", "idle_share", "online_delta_share"):
+        assert got[key] == pytest.approx(want[key], rel=1e-4, abs=1e-7)
+    assert card.summary()["warnings"] == 0

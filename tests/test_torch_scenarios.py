@@ -134,14 +134,23 @@ def test_run_scenario_accepts_a_trace_and_rejects_overrides_on_it():
 
 
 def test_unported_paths_raise_naming_the_module():
-    with pytest.raises(NotImplementedError, match="flowsim"):
-        port.run_scenario("gpt", flowsim=True, **TINY)
+    """The runner's paths that once raised ``NotImplementedError`` naming a
+    missing module (the test keeps its name from then): ``warning_counters``,
+    ``attribution_summary``, ``summary()``'s warning keys and
+    ``flowsim=True`` now equal the reference's."""
+    for solver, ref_solver, rel in (("spectra", "spectra", 1e-12), ("spectra_torch", "spectra_jax", 1e-4)):
+        opts = {"options": CPU} if solver == "spectra_torch" else {}
+        got = port.run_scenario("gpt", solver=solver, online=True, flowsim=True, **opts, **TINY)
+        want = ref.run_scenario("gpt", solver=ref_solver, online=True, flowsim=True, **TINY)
+        assert got.warning_counters().export() == want.warning_counters().export()
+        g, w = got.summary(), want.summary()
+        assert g["warnings"] == w["warnings"] and ("warning_counts" in g) == ("warning_counts" in w)
+        _assert_summaries_equal(g, w, rel)
+        _assert_summaries_equal(got.attribution_summary(), want.attribution_summary(), rel)
+        _assert_summaries_equal(got.flowsim_summary(), want.flowsim_summary(), rel)
     rep = port.run_scenario("gpt", solver="spectra", **TINY)
-    with pytest.raises(NotImplementedError, match="obs.metrics"):
-        rep.warning_counters()
-    with pytest.raises(NotImplementedError, match="obs.timeline_table"):
-        rep.attribution_summary()
-    assert "warnings" not in rep.summary()
+    assert rep.summary()["warnings"] == 0 and "warning_counts" not in rep.summary()
+    assert rep.flowsim_reports == [] and "fct_p50" not in rep.summary()
 
 
 def test_device_runner_needs_cuda_by_default():

@@ -133,10 +133,35 @@
    ``masked_row_top2``. Prints the walls and their ratio, schedules/s, the
    cache hit rate, queue-wait / device / e2e p50 and p99, and one
    ``{"serving": ...}`` line.
-13. Prints one ``{"kernels": [...]}`` line (launches split by path for
+13. The gpt-100m OCS twin (``repro_torch.launch.train_gpt_ocs``, the twin
+   of ``examples/train_gpt_ocs.py``): flash_attention float32 at its (8, 12,
+   256, 64) causal shape against ``mha_ref`` (atol 1e-4), timed beside the
+   plain version, ``scaled_dot_product_attention`` in float32 and the bound;
+   then 300 steps at full width (12 layers, d 768, float32) at B = 8 ×
+   S = 256 with the OCS tick every 20 steps: the loss must decrease, every
+   step must launch flash_attention 12 times and every tick must equal the
+   host ``spectra`` on the ring. Prints ms a step, tokens/s, peak memory.
+14. The sharded train step on the card: an in-process NCCL group of one rank,
+   a 1 × 1 mesh, gpt-100m: equal to the unsharded step (loss 1e-6 relative,
+   gradients 1e-5 of each tensor's largest entry, parameters 1e-5), with
+   flash_attention launched through ``local_map``; the group is destroyed.
+15. The legacy auction shim (``core/torchopt/auction.py``) on a CUDA W at
+   n = 64 and 160: the permutation of ``match_auction`` and of the CPU.
+16. ``repro_torch.bench.matching`` with its gates at n = 100, 256, 512 (and
+   ``auction_fused`` at 1024): quality ≤ 1.10, ``auction_fused`` ≥ 1.5×
+   ``auction`` a dispatch at n ≥ 256. Prints one ``{"bench_matching": ...}``
+   line.
+17. The dry run, in a child process on the CPU started with the script:
+   ``repro_torch.launch.dryrun`` on qwen3-moe-30b-a3b × train_4k and
+   zamba2-1.2b × decode_32k on a fake 16 × 16 process group; it must exit 0
+   and write a JSON file a cell. Prints the per-chip FLOPs, bytes and wire
+   bytes, the collectives by kind, the three terms against the H100 SXM data
+   sheet and the calibration's cross-check: counts, not timings.
+18. Prints one ``{"kernels": [...]}`` line (launches split by path for
    the auction kernels, the online path with its flow replay, the
-   dashboard and the serving phase among them, and for ``flash_attention``)
-   and, last, the ``{"ok": true, "device": {...}}`` line.
+   dashboard, the serving phase, the shim and bench/matching among them,
+   and for ``flash_attention``, the gpt-100m run and the sharded step among
+   them) and, last, the ``{"ok": true, "device": {...}}`` line.
    Any failed check exits non-zero.
 
 Without a CUDA device, or without the repository beside it, it fails.
@@ -2108,6 +2133,282 @@ def phase_serving(seed: int, cpu_path: str) -> dict:
                 schedules_per_s=sustained, open_loop=open_loop, sessions_ms=sessions_s * 1e3)
 
 
+# ---------------------------------------------------------------------------
+# The gpt-100m OCS twin, the sharded step, the legacy auction shim,
+# bench/matching, and the dry run (a CPU child).
+# ---------------------------------------------------------------------------
+
+GPT_STEPS, GPT_B, GPT_S, GPT_OCS_EVERY = 300, 8, 256, 20
+DRYRUN_CELLS = (("qwen3-moe-30b-a3b", "train_4k"), ("zamba2-1.2b", "decode_32k"))
+
+
+def auction_counters() -> dict:
+    from repro_torch.kernels.auction_bid import auction_rounds, masked_row_top2
+    from repro_torch.kernels.auction_fused import fused_auction
+
+    return {"auction_bid": masked_row_top2.launches, "auction_rounds": auction_rounds.launches,
+            "auction_fused": fused_auction.launches, "auction_fused_cluster": fused_auction.cluster_launches}
+
+
+def zero_auction_counters() -> None:
+    from repro_torch.kernels.auction_bid import auction_rounds, masked_row_top2
+    from repro_torch.kernels.auction_fused import fused_auction
+
+    masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = 0
+    fused_auction.cluster_launches = 0
+
+
+def flash_f32_gpt_shape(rng) -> dict:
+    """flash_attention float32 (the CUDA-core kernel) at gpt-100m's (8, 12,
+    256, 64) causal: against mha_ref at atol 1e-4, timed with its plain
+    version, scaled_dot_product_attention in float32 and its bound."""
+    from repro_torch.kernels.flash_attention import flash_attention, mha_ref
+
+    B, H, S, D = GPT_B, 12, GPT_S, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, S, D), dtype=np.float32)).cuda() for _ in range(3))
+    got = flash_attention(q, k, v, causal=True)
+    want = mha_ref(q, k, v, causal=True)
+    err = float((got - want).abs().max())
+    check(err <= 1e-4, f"flash_attention float32 at gpt-100m's shape: max |Δ| {err}")
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 50)
+    plain_ms = cuda_ms(lambda: mha_ref(q, k, v, causal=True), 20)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True), 50)
+    flops = 4.0 * D * B * H * attended_pairs(S, S, True, None)
+    b_ms, b_by = bound(4.0 * 4 * B * H * S * D, flops, FP32_FLOPS)
+    print(f"flash_attention float32 (8, 12, 256, 64) causal, gpt-100m's shape: max |kernel − plain| {err:.3g}; "
+          f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention float32 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(shape=[B, H, S, D], dtype="float32", ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, flops=flops, max_abs_err=err)
+
+
+def phase_gpt100m(rng) -> dict:
+    """The twin of examples/train_gpt_ocs.py at full width: gpt-100m (12
+    layers, d 768, 12 heads, float32), 300 steps at B = 8 × S = 256, the OCS
+    tick every 20 steps on OCSFabric(4, 20 µs) over 8 racks. The loss must
+    decrease, every step must launch flash_attention 12 times (counters set to
+    0 just before each step), and every tick must equal the host spectra on
+    the same ring matrix."""
+    from repro_torch.fabric import OCSFabric
+    from repro_torch.launch.train_gpt_ocs import make_gpt_trainer
+    from repro_torch.train.loop import _demand_from_stats
+
+    free_device_memory()
+    timed = flash_f32_gpt_shape(rng)
+    tr, cfg, steps = make_gpt_trainer(steps=GPT_STEPS, batch=GPT_B, seq=GPT_S, ocs_every=GPT_OCS_EVERY)
+    per_step: list = []
+    tr.train_step = counted(tr.train_step, per_step)
+    walls: list = []
+    step_fn = tr.train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*args)
+        out[2]["loss"].item()
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    tr.train_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = tr.run(0)
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in state.history]
+    check(state.step == GPT_STEPS and len(per_step) == GPT_STEPS, f"gpt-100m: {state.step} steps, {len(per_step)} counted")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"gpt-100m: loss did not decrease: {losses}")
+    check(all(c["flash_attention"] == cfg.num_layers for c in per_step),
+          f"gpt-100m: flash launches a step {sorted({c['flash_attention'] for c in per_step})}, expected {cfg.num_layers}")
+    ring = _demand_from_stats(8, {}, 0)
+    res, cct = OCSFabric(num_switches=4, reconfig_delay_s=20e-6).schedule_bytes(ring * 1e9)
+    check([r["step"] for r in state.cct_log] == list(range(GPT_OCS_EVERY - 1, GPT_STEPS, GPT_OCS_EVERY)),
+          f"gpt-100m ticks at {[r['step'] for r in state.cct_log]}")
+    for r in state.cct_log:
+        check(r["cct_s"] == cct and r["makespan"] == res.makespan and r["configs"] == res.schedule.num_configs(),
+              f"gpt-100m tick {r} differs from host spectra ({cct} s)")
+    ms = float(np.mean(walls[1:])) * 1e3
+    phases, groups, span = step_breakdown(tr, state)
+    busy = sum(groups.values())
+    print("gpt-100m train step, device time by phase (CUDA events, one step): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in phases.items()) + "; by kernel group (torch.profiler, one more "
+          + "step): " + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+          + f", busy {busy:.2f} ms of that step's {span:.2f} ms event span (idle share {1 - busy / span:.3f})")
+    print(f"gpt-100m ({tr.model.param_count() / 1e6:.1f} M parameters, float32): {GPT_STEPS} steps at B={GPT_B} "
+          f"S={GPT_S} in {run_s:.1f} s; loss {losses[0]:.4f} → {losses[-1]:.4f}; step after the first {ms:.2f} ms "
+          f"(min {min(walls[1:]) * 1e3:.2f}, max {max(walls[1:]) * 1e3:.2f}), {GPT_B * GPT_S / ms * 1e3:.0f} tokens/s; "
+          f"peak memory {peak_gb:.2f} GB; flash_attention {per_step[-1]['flash_attention']} launches a step; {len(state.cct_log)} "
+          f"ticks, each CCT {cct * 1e3:.4f} ms = host spectra (makespan {res.makespan:.6f}, LB {res.lower_bound:.6f}, "
+          f"{res.schedule.num_configs()} circuits)")
+    return dict(launches=sum(c["flash_attention"] for c in per_step), ms_per_step=ms,
+                tokens_per_s=GPT_B * GPT_S / ms * 1e3, peak_gb=peak_gb, loss_first=losses[0], loss_last=losses[-1],
+                ticks=len(state.cct_log), cct_ms=cct * 1e3, run_s=run_s, flash_f32=timed, phases_ms=phases,
+                groups_ms=groups, idle_share=1 - busy / span)
+
+
+def phase_sharded_step() -> dict:
+    """The sharded train step on the card: an in-process NCCL group of one
+    rank, a 1 × 1 mesh, gpt-100m at full width. It must equal the unsharded
+    step (loss 1e-6 relative, every gradient tensor 1e-5 of its largest
+    entry, parameters 1e-5) with flash_attention launched on the local shards
+    through local_map (12 a forward). The group is destroyed at the end."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.data import make_stream
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train_gpt_ocs import gpt_100m
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel.steps import (loss_and_grads, make_model_for_cell, make_optimizer,
+                                            make_sharded_train_step, make_train_step, shard_state)
+
+    cfg = gpt_100m()
+    model = build_model(cfg)
+    opt = make_optimizer()
+    params = model.init(0)
+    batch = make_stream(cfg.vocab_size, GPT_S, GPT_B).next_batch(0)
+    p1, _, m1 = make_train_step(model, opt)(params, opt.init(params), batch)
+    _, _, g1 = loss_and_grads(model, params, batch)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_debug_mesh(1, model=1)
+        smodel = make_model_for_cell(cfg, mesh, remat=False)
+        ps, os_, bs = shard_state(params, opt.init(params), batch, mesh)
+        step = make_sharded_train_step(smodel, opt, mesh)
+        step(ps, os_, bs)  # the first call fills DTensor's sharding caches
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        p2, _, m2 = step(ps, os_, bs)
+        torch.cuda.synchronize()
+        sharded_ms = (time.perf_counter() - t0) * 1e3
+        launches = flash_attention.launches
+        with implicit_replication():
+            _, _, g2 = loss_and_grads(smodel, ps, bs)
+        loss_rel = abs(float(m2["loss"]) - float(m1["loss"])) / abs(float(m1["loss"]))
+        grad_worst = max(float((g2[k].full_tensor() - g1[k]).abs().max() / g1[k].abs().max()) for k in g1)
+        param_worst = max(float((p2[k].full_tensor() - p1[k]).abs().max()) for k in p1)
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the NCCL group outlived the sharded phase")
+    check(launches == cfg.num_layers, f"sharded step: flash_attention launched {launches} times, "
+                                      f"expected {cfg.num_layers} through local_map")
+    check(loss_rel <= 1e-6, f"sharded step loss {float(m2['loss'])} vs unsharded {float(m1['loss'])}")
+    check(grad_worst <= 1e-5, f"sharded step: a gradient differs by {grad_worst} of its largest entry")
+    check(param_worst <= 1e-5, f"sharded step: parameters differ by {param_worst}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    make_train_step(model, opt)(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"sharded step, gpt-100m on an in-process NCCL group of 1 (1 × 1 mesh): loss {float(m2['loss']):.6f} vs "
+          f"{float(m1['loss']):.6f} (relative {loss_rel:.3g}); worst gradient tensor {grad_worst:.3g} of its largest "
+          f"entry; parameters {param_worst:.3g}; flash_attention {launches} launches through local_map; step "
+          f"{sharded_ms:.1f} ms sharded vs {plain_ms:.1f} ms unsharded (host clock, one step each)")
+    return dict(launches=launches, loss_rel=loss_rel, grad_worst=grad_worst, param_worst=param_worst,
+                sharded_ms=sharded_ms, plain_ms=plain_ms)
+
+
+def phase_shim(rng) -> dict:
+    """The legacy auction shim on a CUDA W: the permutation of match_auction,
+    through auction_rounds at n = 64 and masked_row_top2 at n = 160."""
+    from repro_torch.core.torchopt.auction import auction_maximize
+    from repro_torch.core.torchopt.matching import match_auction
+    from repro_torch.traffic import permutations_workload
+
+    zero_auction_counters()
+    for n in (64, 160):
+        D = permutations_workload(n=n, k=16, rng=rng)[None].astype(np.float32)
+        W = bonus_weights(torch.from_numpy(D))[0].cuda()
+        perm, conv = auction_maximize(W)
+        want = match_auction(W[None])
+        check(bool(conv) and torch.equal(perm, want.perm[0]), f"shim n={n}: permutation differs from match_auction")
+        check(torch.equal(perm.cpu(), auction_maximize(W.cpu())[0]), f"shim n={n}: card differs from the CPU")
+    launches = auction_counters()
+    check(launches["auction_rounds"] > 0 and launches["auction_bid"] > 0, f"shim launches {launches}")
+    print(f"legacy auction shim on the card: the permutation of match_auction and of the CPU at n = 64 and 160; "
+          f"launches {launches} (the shim's and match_auction's calls)")
+    return launches
+
+
+def phase_bench_matching() -> dict:
+    """bench/matching --check on the card: n = 100, 256, 512 with the
+    reference's matchers a size, and auction_fused at 1024. The quality gate
+    (≤ 1.10) and the speed gate (auction_fused ≥ 1.5× auction at n ≥ 256)
+    must pass."""
+    from repro_torch.bench import matching as bench
+
+    zero_auction_counters()
+    t0 = time.perf_counter()
+    rows = bench.run((100, 256, 512), 3) + bench.run((1024,), 1, only=("auction_fused",))
+    launches = auction_counters()
+    failures = bench.check(rows)
+    path = bench.write(rows, "cuda")
+    print(json.dumps({"bench_matching": rows, "gate_failures": failures, "artifact": str(path)}))
+    check(not failures, f"bench/matching gates: {failures}")
+    by = {(r["n"], r["matcher"]): r["ms_per_dispatch"] for r in rows}
+    print(f"bench/matching --check passed in {time.perf_counter() - t0:.1f} s: auction_fused over auction "
+          + ", ".join(f"n={n} {by[(n, 'auction')] / by[(n, 'auction_fused')]:.1f}x" for n in (256, 512) if (n, 'auction') in by)
+          + f"; launches {launches}")
+    return launches
+
+
+def start_dryrun(tmp_dir: str):
+    """The dry run in a child process on the CPU (no card), beside the card's phases."""
+    log = open(Path(tmp_dir) / "dryrun.log", "w")
+    cmd = [sys.executable, "-c", "import sys, time; from repro_torch.launch.dryrun import main; t = time.time(); "
+           "rc = max(main(['--single-pod', '--force', '--arch', a, '--shape', s]) for a, s in "
+           + repr(DRYRUN_CELLS) + "); print(f'DRYRUN_SECONDS {time.time() - t:.1f}'); sys.exit(rc)"]
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(Path(__file__).resolve().parent / "src"),
+           "OMP_NUM_THREADS": "1"}
+    proc = subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, log, time.perf_counter()
+
+
+def phase_dryrun(child) -> dict:
+    """Wait for the dry-run child, require exit 0 and a JSON file a cell, and
+    print its fake-mesh counts: per-chip FLOPs, bytes and wire bytes, the
+    collectives by kind, the three terms against the H100 SXM data sheet and
+    the calibration cross-check. Counts, not timings."""
+    from repro_torch.launch.dryrun import cell_path
+
+    proc, log, _ = child
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    log.close()
+    waited = time.perf_counter() - t0
+    text = Path(log.name).read_text()
+    tail = "\n".join(line for line in text.splitlines() if "W1017" not in line and line.strip())[-3000:]
+    check(rc == 0, f"dry-run child exited {rc}:\n{tail}")
+    out = {}
+    for arch, shape in DRYRUN_CELLS:
+        path = cell_path(arch, shape, False)
+        check(path.exists(), f"dry run wrote no {path}")
+        art = json.loads(path.read_text())
+        r, cal = art["roofline"], art["calibration"]
+        print(f"dry run {arch} × {shape} on a fake 16 × 16 mesh (counts on one rank, not timings; traced in "
+              f"{art['trace_s']} s): per chip {r['flops_per_chip']:.4g} FLOP, {r['bytes_per_chip']:.4g} B, wire "
+              f"{r['wire_bytes_per_chip']:.4g} B; collectives {r['collectives']['ops']}; terms against the H100 SXM "
+              f"data sheet: compute {r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, collective "
+              f"{r['collective_s']:.4g} s (dominant {r['dominant']}, useful {r['useful_ratio']:.3g}, roofline "
+              f"fraction {r['roofline_fraction']:.3g}); resident {art['bytes_per_device_est'] / 1e9:.4g} GB a chip; "
+              f"calibration base + (units − 1)·per-unit vs traced, relative {cal.get('rel_diff')}")
+        out[f"{arch}__{shape}"] = dict(trace_s=art["trace_s"], roofline=r, calibration=cal,
+                                       bytes_per_device_est=art["bytes_per_device_est"])
+    took = [line.split()[1] for line in text.splitlines() if line.startswith("DRYRUN_SECONDS")]
+    print(f"dry-run child: {took[0] if took else '?'} s of its own, beside the card's phases (the card's phases "
+          f"waited {waited:.1f} s for it at the end)")
+    out["child_s"] = float(took[0]) if took else None
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2136,18 +2437,21 @@ def main() -> None:
     # Its own process group: stopping it stops its worker processes too.
     cpu_child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--cpu-online", cpu_path],
                                  env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, start_new_session=True)
+    dry_child = start_dryrun(tmp.name)
     try:
-        run_phases(args, t_start, cpu_child, cpu_path)
+        run_phases(args, t_start, cpu_child, cpu_path, dry_child)
     finally:
-        try:
-            os.killpg(cpu_child.pid, signal.SIGKILL)
-        except ProcessLookupError:
-            pass
-        cpu_child.wait()
+        for child in (cpu_child, dry_child[0]):
+            try:
+                os.killpg(child.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            child.wait()
+        dry_child[1].close()
         tmp.cleanup()
 
 
-def run_phases(args, t_start: float, cpu_child, cpu_path: str) -> None:
+def run_phases(args, t_start: float, cpu_child, cpu_path: str, dry_child) -> None:
     from repro_torch.kernels import backend
 
     t0 = time.perf_counter()
@@ -2202,6 +2506,19 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str) -> None:
     by_dashboard = phase_dashboard(str(Path(cpu_path).parent))
     serving = phase_serving(args.seed, cpu_path)
     print(f"dashboard and serving phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gpt = phase_gpt100m(np.random.default_rng([20, args.seed]))
+    print(f"gpt-100m phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded = phase_sharded_step()
+    print(f"sharded step phase: {time.perf_counter() - t0:.1f} s")
+    by_path["gpt100m_train"] = gpt["launches"]
+    by_path["sharded_step"] = sharded["launches"]
+    t0 = time.perf_counter()
+    by_shim = phase_shim(np.random.default_rng([21, args.seed]))
+    by_bench = phase_bench_matching()
+    print(f"shim and bench/matching phases: {time.perf_counter() - t0:.1f} s")
+    dry = phase_dryrun(dry_child)
     launches["demand_accum"] = demand_accum.launches
 
     bid_main = bid["shapes"][3]  # (4, 512): the widest the round loop serves on the solver layer's path
@@ -2212,7 +2529,8 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str) -> None:
 
     def paths(key: str) -> dict:
         return {"solver_buckets": launches[key], "solver_layer": by_layer[key], "online": by_online[key],
-                "dashboard": by_dashboard.get(key, 0), "serving": by_serving.get(key, 0)}
+                "dashboard": by_dashboard.get(key, 0), "serving": by_serving.get(key, 0),
+                "shim": by_shim[key], "bench_matching": by_bench[key]}
 
     kernels = [
         dict(name="auction_bid", route="cuda", source="src/repro_torch/csrc/auction_bid.cu",
@@ -2246,7 +2564,7 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str) -> None:
              launches=sum(by_path.values()), launches_by_path=by_path,
              max_abs_err=flash["max_abs_err"], ms=flash["ms"], plain_ms=flash["plain_ms"],
              bound_ms=flash["bound_ms"], bound_by=flash["bound_by"], library_ms=flash["library_ms"],
-             shape=flash["shape"], dtype=flash["dtype"], shapes=flash["shapes"]),
+             shape=flash["shape"], dtype=flash["dtype"], shapes=flash["shapes"] + [gpt["flash_f32"]]),
         dict(name="ssd_chunk", route="cuda", source="src/repro_torch/csrc/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:25",
              launches=launches["ssd_chunk"] + train_launches["ssd_chunk"],
@@ -2263,6 +2581,8 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str) -> None:
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"online": online["rows"], "online_loops_n512": online["loops"]}))
     print(json.dumps({"serving": {k: v for k, v in serving.items() if k != "launches"}}))
+    print(json.dumps({"gpt100m": {k: v for k, v in gpt.items() if k != "launches"}, "sharded_step": sharded,
+                      "dryrun": dry}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -245,3 +245,7 @@ def get_matcher(name: str) -> MatcherFn:
     if name not in MATCHERS:
         raise KeyError(f"unknown matcher {name!r}; available: {sorted(MATCHERS)}")
     return MATCHERS[name]
+
+
+def list_matchers() -> list[str]:
+    return sorted(MATCHERS)

@@ -10,6 +10,9 @@ float32 on the CUDA cores), a CPU tensor takes the plain ``mha_ref``.
 is ``flash_attention`` and whose backward recomputes through ``mha_ref``,
 as the reference's ``custom_vjp`` does. Unlike the reference wrapper it does
 not pad the head dim to 128: the kernel takes D in {32, 64, 128} as it is.
+On DTensors (the sharded step, ``parallel/steps.py``) it runs on each
+rank's shard through ``local_map``: batch over the data axes and heads over
+the model axis where they divide, the rest gathered first.
 """
 
 from __future__ import annotations
@@ -99,7 +102,7 @@ class _MHA(torch.autograd.Function):
             inputs = [t.detach().requires_grad_() for t in (q, k, v)]
             out = mha_ref(*inputs, causal=causal, window=window, scale=scale)
             grads = torch.autograd.grad(out, inputs, g)
-        return (*grads, None, None, None)
+        return (*(t.contiguous() for t in grads), None, None, None)
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -107,4 +110,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = Tru
     """Grouped-query attention. q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D)."""
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
+    from ...parallel.sharding import head_placements, is_dtensor, local_call
+
+    if is_dtensor(q):
+        pl = head_placements(q.device_mesh, q.shape[0], k.shape[1])
+        return local_call(lambda q, k, v: _MHA.apply(q, k, v, causal, window, scale), (pl, pl, pl), pl, q, k, v)
     return _MHA.apply(q, k, v, causal, window, scale)

@@ -24,6 +24,17 @@ from ..kernels.ssd_scan.ops import ssd_decode_step, ssd_scan
 from .layers import apply_rope, causal_conv1d, dense, rms_norm, silu, winit, zinit
 
 
+def _residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y``. On DTensors ``y`` (a row-parallel product's partial sum) is
+    first placed like the residual stream ``x``: the reduce-scatter of a
+    sequence-parallel block, which DTensor does not pick by itself."""
+    from ..parallel.sharding import is_dtensor
+
+    if is_dtensor(y) and is_dtensor(x) and tuple(y.placements) != tuple(x.placements):
+        y = y.redistribute(x.device_mesh, x.placements)
+    return x + y
+
+
 def _params(module: nn.Module, tensors: dict[str, torch.Tensor]) -> None:
     for name, t in tensors.items():
         module.register_parameter(name, nn.Parameter(t, requires_grad=False))
@@ -34,12 +45,20 @@ def _params(module: nn.Module, tensors: dict[str, torch.Tensor]) -> None:
 # ---------------------------------------------------------------------------
 
 def _split_heads(x: torch.Tensor, n_heads: int, dh: int) -> torch.Tensor:
+    from ..parallel.sharding import fit_heads, is_dtensor
+
     B, S, _ = x.shape
+    if is_dtensor(x):
+        x = fit_heads(x, n_heads)
     return x.reshape(B, S, n_heads, dh).transpose(1, 2)  # (B, H, S, dh)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    from ..parallel.sharding import fit_heads_grad, is_dtensor
+
     B, H, S, dh = x.shape
+    if is_dtensor(x):  # a copy first: a shard of one head has no stride to tell DTensor it cannot view
+        return fit_heads_grad(x.transpose(1, 2).contiguous().reshape(B, S, H * dh), H)
     return x.transpose(1, 2).reshape(B, S, H * dh)
 
 
@@ -47,8 +66,17 @@ def _decode_attention(q, k_cache, v_cache, keep, scale):
     """Masked single-query attention over a fixed-size cache, in float32.
 
     q: (B, Hq, 1, dh); caches: (B, Hkv, Smax, dh); keep: (Smax,) bool mask of
-    the valid cache slots.
+    the valid cache slots. On DTensors it runs on each rank's (row, head)
+    shards through ``local_map``; a cache sharded over its sequence is
+    gathered for it.
     """
+    from ..parallel.sharding import head_placements, is_dtensor, local_call
+
+    if is_dtensor(q):
+        keep = keep.full_tensor() if is_dtensor(keep) else keep
+        pl = head_placements(q.device_mesh, q.shape[0], k_cache.shape[1])
+        return local_call(lambda q, k, v: _decode_attention(q, k, v, keep, scale), (pl, pl, pl), pl,
+                          q, k_cache, v_cache)
     B, Hq, _, dh = q.shape
     Hkv = k_cache.shape[1]
     group = Hq // Hkv
@@ -137,10 +165,10 @@ class Attention(nn.Module):
             new_cache = cache
             attn = _decode_attention(q, k, v, keep, scale)
 
-        x = x + dense(_merge_heads(attn), self.wo)
+        x = _residual(x, dense(_merge_heads(attn), self.wo))
         if self.with_mlp:
             h = rms_norm(x, self.norm2, cfg.norm_eps)
-            x = x + dense(silu(dense(h, self.wi_gate)) * dense(h, self.wi_up), self.wdown)
+            x = _residual(x, dense(silu(dense(h, self.wi_gate)) * dense(h, self.wi_up), self.wdown))
         return x, new_cache
 
 
@@ -250,15 +278,68 @@ class MoE(nn.Module):
         _params(self, p)
 
     def forward(self, x):
-        B, S, D = x.shape
+        from ..parallel.sharding import is_dtensor
+
+        if is_dtensor(x):
+            return self._forward_sharded(x)
+        return _moe_forward(self, x, self.cfg)
+
+    def _forward_sharded(self, x):
+        """The block on DTensors (the sharded step). DTensor has no sharding
+        strategy for the dispatch (the stable sort, the scatters and
+        gathers), so the block runs through ``local_map`` on each rank's
+        rows with its parameters gathered (ZeRO-3 for this block): with one
+        dispatch group a row (S ≥ 4·E) the batch stays sharded over the data
+        axes and the loads and aux loss are partial sums over them; with one
+        global group the tokens are gathered too. The same numbers as
+        ``_moe_forward`` on the full batch, to the float order of the sums."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        from ..parallel.sharding import batch_axes, mesh_axes
+
+        mesh = x.device_mesh
+        B, S, _ = x.shape
         m = self.cfg.moe
-        h = rms_norm(x, self.norm1, self.cfg.norm_eps)
-        groups = h if S >= 4 * m.num_experts else h.reshape(1, B * S, D)
-        y, stats = moe_ffn(self, groups, m)
-        y = y.reshape(B, S, D)
-        if m.num_shared:
-            y = y + dense(silu(dense(h, self.ws_gate)) * dense(h, self.ws_up), self.ws_down)
-        return x + y, stats
+        axes = mesh_axes(mesh)
+        baxes = batch_axes(mesh)
+        n_b = math.prod(axes[a] for a in baxes)
+        split = S >= 4 * m.num_experts and B % n_b == 0 and n_b > 1
+        rows = tuple(Shard(0) if split and a in baxes else Replicate() for a in axes)
+        summed = tuple(Partial() if split and a in baxes else Replicate() for a in axes)
+        rep = tuple(Replicate() for _ in axes)
+        names = list(self._parameters)
+        cfg, share = self.cfg, (1.0 / n_b if split else 1.0)
+
+        def local(x, *ps):
+            y, stats = _moe_forward(_Weights(dict(zip(names, ps))), x, cfg)
+            return y, stats["expert_load"], stats["aux_loss"] * share
+
+        from ..parallel.sharding import local_call
+
+        y, load, aux = local_call(local, (rows,) + (rep,) * len(names), (rows, summed, summed), x,
+                                  *(self._parameters[n] for n in names),
+                                  grad_placements=(rows,) + (summed,) * len(names))
+        return y, {"expert_load": load, "aux_loss": aux}
+
+
+class _Weights:
+    """Local parameter tensors under their block's names (``moe_ffn`` reads
+    them as attributes)."""
+
+    def __init__(self, tensors: dict[str, torch.Tensor]):
+        self.__dict__.update(tensors)
+
+
+def _moe_forward(p, x, cfg: ModelConfig):
+    B, S, D = x.shape
+    m = cfg.moe
+    h = rms_norm(x, p.norm1, cfg.norm_eps)
+    groups = h if S >= 4 * m.num_experts else h.reshape(1, B * S, D)
+    y, stats = moe_ffn(p, groups, m)
+    y = y.reshape(B, S, D)
+    if m.num_shared:
+        y = y + dense(silu(dense(h, p.ws_gate)) * dense(h, p.ws_up), p.ws_down)
+    return x + y, stats
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +352,24 @@ def ssm_dims(cfg: ModelConfig):
     H = d_inner // s.head_dim
     conv_dim = d_inner + 2 * s.n_groups * s.d_state
     return s, d_inner, H, conv_dim
+
+
+def _ssd_heads(xd, loga, Bh, Ch, h0=None):
+    """The SSD transform on (B, S, H, ·) inputs (``loga`` (B, S, H)):
+    folded to (B·H, S, ·) for ``ssd_scan`` (one token with a state:
+    ``ssd_decode_step``) → (y (B, S, H, P), final state (B·H, N, P))."""
+    B, S, H, _ = xd.shape
+
+    def fold(a):  # (B, S, H, ...) → (B·H, S, ...)
+        return a.transpose(1, 2).reshape(B * H, S, *a.shape[3:])
+
+    xd_f, loga_f, B_f, C_f = fold(xd), fold(loga[..., None])[..., 0], fold(Bh), fold(Ch)
+    if h0 is None or S > 1:
+        y_f, hT = ssd_scan(xd_f, loga_f, B_f, C_f, h0)
+    else:
+        hT, y_step = ssd_decode_step(h0, xd_f[:, 0], loga_f[:, 0], B_f[:, 0], C_f[:, 0])
+        y_f = y_step[:, None]
+    return y_f.reshape(B, H, S, -1).transpose(1, 2), hT
 
 
 class Mamba(nn.Module):
@@ -322,21 +421,20 @@ class Mamba(nn.Module):
         # B/C are shared by the heads of a group: repeated, as the reference does.
         Bh = Bmat.reshape(B, S, G, N).repeat_interleave(H // G, dim=2)
         Ch = Cmat.reshape(B, S, G, N).repeat_interleave(H // G, dim=2)
+        from ..parallel.sharding import head_placements, is_dtensor, local_call
 
-        def fold(a):  # (B, S, H, ...) → (B·H, S, ...)
-            return a.transpose(1, 2).reshape(B * H, S, *a.shape[3:])
-
-        xd_f, loga_f, B_f, C_f = fold(xd), fold(loga[..., None])[..., 0], fold(Bh), fold(Ch)
-        h0 = None if cache is None else cache["ssm"]
-        if cache is None or S > 1:
-            y_f, hT = ssd_scan(xd_f, loga_f, B_f, C_f, h0)
+        if is_dtensor(xd) and cache is None:  # the sharded step: each rank's (row, head) shards
+            pl = head_placements(xd.device_mesh, B, H, head_dim=2)
+            y, hT = local_call(lambda *a: _ssd_heads(*a)[0], (pl,) * 4, pl, xd, loga, Bh, Ch), None
+        elif is_dtensor(xd):  # sharded decode: rows over the data axes; the state (B·H, N, P) is row-major
+            mesh = xd.device_mesh
+            pl, pl_h = head_placements(mesh, B, 1, head_dim=2), head_placements(mesh, B, 1)
+            y, hT = local_call(_ssd_heads, (pl,) * 4 + (pl_h,), (pl, pl_h), xd, loga, Bh, Ch, cache["ssm"])
         else:
-            hT, y_step = ssd_decode_step(h0, xd_f[:, 0], loga_f[:, 0], B_f[:, 0], C_f[:, 0])
-            y_f = y_step[:, None]
-        y = y_f.reshape(B, H, S, P).transpose(1, 2)  # (B, S, H, P)
+            y, hT = _ssd_heads(xd, loga, Bh, Ch, None if cache is None else cache["ssm"])
         y = y + xh.to(y.dtype) * self.skip_D[None, None, :, None]
         y = y.reshape(B, S, d_inner)
         y = rms_norm(y * silu(z), self.out_norm, cfg.norm_eps)
-        out = x + dense(y, self.w_out)
+        out = _residual(x, dense(y, self.w_out))
         new_cache = None if cache is None else {"conv": new_conv_state, "ssm": hT}
         return out, new_cache

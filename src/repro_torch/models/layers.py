@@ -19,6 +19,15 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ w (+ b)``. A sequence-sharded DTensor ``x`` is gathered first,
+    and so is the gradient that comes back to ``y``
+    (``parallel.sharding.gather_inner``): the product flattens (B, S, ·),
+    which DTensor does not do with the sequence sharded."""
+    from ..parallel.sharding import gather_inner, gather_inner_grad, is_dtensor
+
+    if is_dtensor(x):
+        y = gather_inner_grad(gather_inner(x) @ w.to(x.dtype))
+        return y if b is None else y + b.to(x.dtype)
     y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)

@@ -44,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels.backend import resolve_device
 from .blocks import Attention, Mamba, MoE, ssm_dims
-from .layers import rms_norm, winit, zinit
+from .layers import dense, rms_norm, winit, zinit
 
 PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
@@ -68,6 +68,46 @@ def hybrid_layout(cfg: ModelConfig) -> tuple[int, int]:
     return n_groups, cfg.num_layers - n_groups * cfg.attn_every
 
 
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, enc_out: torch.Tensor | None = None,
+               device=None) -> dict:
+    """Fresh decode caches of ``cfg`` on ``device`` (``meta`` gives their
+    shapes alone, ``cache_specs``); the audio family needs the encoder's
+    output ``enc_out`` (B, S_enc, D), which the cache keeps."""
+    kw = dict(dtype=torch_dtype(cfg), device=device)
+    dh, Hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+
+    def kv(length):
+        return {"k": torch.zeros((batch_size, Hkv, length, dh), **kw),
+                "v": torch.zeros((batch_size, Hkv, length, dh), **kw), "pos": 0}
+
+    def ssm_cache():
+        s, _, H, conv_dim = ssm_dims(cfg)
+        return {"conv": torch.zeros((batch_size, s.conv_width - 1, conv_dim), **kw),
+                "ssm": torch.zeros((batch_size * H, s.d_state, s.head_dim), dtype=torch.float32, device=device)}
+
+    if cfg.family in ("dense", "moe", "vlm"):
+        period, n_periods, rem = layer_pattern(cfg)
+
+        def layer_len(local):  # local layers need only a window-sized cache
+            return min(cfg.window, max_len) if local and cfg.window else max_len
+
+        return {"periods": [[kv(layer_len(local)) for local in period] for _ in range(n_periods)],
+                "remainder": [kv(layer_len(local)) for local in rem]}
+    if cfg.family == "ssm":
+        return {"layers": [ssm_cache() for _ in range(cfg.num_layers)]}
+    if cfg.family == "hybrid":
+        n_groups, rem_n = hybrid_layout(cfg)
+        return {"groups": [{"mamba": [ssm_cache() for _ in range(cfg.attn_every)], "attn": kv(max_len)}
+                           for _ in range(n_groups)],
+                "remainder": [ssm_cache() for _ in range(rem_n)]}
+    if enc_out is None:
+        raise ValueError("the audio decode cache needs the encoder's output enc_out")
+    # Cross K/V are recomputed from enc_out every step; "cross" is the
+    # reference's placeholder entry.
+    return {"dec_layers": [{"self": kv(max_len), "cross": kv(8)} for _ in range(cfg.num_layers)],
+            "enc_out": enc_out.to(device=device, dtype=kw["dtype"])}
+
+
 class LM(nn.Module):
     """``LM(cfg, device=None, seed=0, remat=False)``: the model with fresh random weights.
 
@@ -76,12 +116,14 @@ class LM(nn.Module):
     seeded with ``seed``, at the reference's scales and in the config's type.
     """
 
-    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0, remat: bool = False):
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0, remat: bool = False,
+                 act_pspec: tuple | None = None):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
         self.remat = remat
+        self.act_pspec = act_pspec
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         kw = dict(dtype=torch_dtype(cfg), device=dev)
@@ -172,18 +214,32 @@ class LM(nn.Module):
         return loss, metrics
 
     # ------------------------------------------------------------- forward
+    def _constrain(self, x):
+        """The activation constraint between blocks (``act_pspec``, the
+        reference's ``with_sharding_constraint``): a redistribution of a
+        DTensor ``x``; anything else passes."""
+        from ..parallel.sharding import fit_placements, is_dtensor
+
+        if self.act_pspec is None or not is_dtensor(x):
+            return x
+        return x.redistribute(x.device_mesh, fit_placements(self.act_pspec, x.shape, x.device_mesh))
+
     def _block(self, run, x, decode: bool):
         """One scanned block ``run(x) → (x, caches, *stats)``, checkpointed
-        when ``remat`` and a gradient is being recorded (full sequence only)."""
-        if decode or not (self.remat and torch.is_grad_enabled()):
+        when ``remat`` and a gradient is being recorded (full sequence only),
+        then constrained (``_constrain``)."""
+        if decode:
             return run(x)
+        if not (self.remat and torch.is_grad_enabled()):
+            x, caches, *stats = run(x)
+            return (self._constrain(x), caches, *stats)
 
         def forward(x):
             x, _, *stats = run(x)
             return (x, *stats)
 
         x, *stats = checkpoint(forward, x, use_reentrant=False)
-        return (x, None, *stats)
+        return (self._constrain(x), None, *stats)
 
     def _backbone(self, x, positions, caches=None):
         """Decoder trunk; ``caches=None`` is the full-sequence forward.
@@ -285,10 +341,32 @@ class LM(nn.Module):
             new.append(nc)
         return x, ({"dec_layers": new} if decode else None)
 
+    def _embed(self, tokens):
+        """The token embeddings. On a DTensor table (the sharded step) the
+        lookup runs through ``local_map`` on each rank's rows of the batch
+        with the table gathered: DTensor's own strategies for the lookup
+        differ from release to release. The table's gradient is then a
+        partial sum over the batch axes."""
+        from ..parallel.sharding import is_dtensor
+
+        if not is_dtensor(self.embed):
+            return self.embed[tokens]
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        from ..parallel.sharding import head_placements, local_call
+
+        mesh = self.embed.device_mesh
+        rep = tuple(Replicate() for _ in range(mesh.ndim))
+        if not isinstance(tokens, DTensor):
+            tokens = DTensor.from_local(tokens, mesh, rep, run_check=False)
+        rows = head_placements(mesh, tokens.shape[0], 1)
+        summed = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in rows)
+        return local_call(lambda e, t: e[t], (rep, rows), rows, self.embed, tokens, grad_placements=(summed, rows))
+
     def _logits(self, x):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return (x @ head.to(x.dtype)).float()
+        return dense(x, head).float()
 
     def apply(self, batch: dict) -> dict:
         """Full-sequence forward: {"tokens": (B, S) int, ...} → {"logits": (B, S, V)
@@ -301,7 +379,7 @@ class LM(nn.Module):
         cfg = self.cfg
         tokens = batch["tokens"].to(self.device)
         B, S = tokens.shape
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         if cfg.family == "vlm" and "patch_embeds" in batch:
             n_patch = min(batch["patch_embeds"].shape[1], S)
             pe = batch["patch_embeds"][:, :n_patch].to(device=self.device, dtype=x.dtype)
@@ -326,45 +404,11 @@ class LM(nn.Module):
     def init_cache(self, batch_size: int, max_len: int, enc_out: torch.Tensor | None = None) -> dict:
         """Fresh decode caches; the audio family needs the encoder's output
         ``enc_out`` (B, S_enc, D), which the cache keeps."""
-        cfg = self.cfg
-        kw = dict(dtype=torch_dtype(cfg), device=self.device)
-        dh, Hkv = cfg.resolved_head_dim, cfg.num_kv_heads
-
-        def kv(length):
-            return {"k": torch.zeros((batch_size, Hkv, length, dh), **kw),
-                    "v": torch.zeros((batch_size, Hkv, length, dh), **kw), "pos": 0}
-
-        def ssm_cache():
-            s, _, H, conv_dim = ssm_dims(cfg)
-            return {"conv": torch.zeros((batch_size, s.conv_width - 1, conv_dim), **kw),
-                    "ssm": torch.zeros((batch_size * H, s.d_state, s.head_dim), dtype=torch.float32,
-                                       device=self.device)}
-
-        if cfg.family in ("dense", "moe", "vlm"):
-            period, n_periods, rem = layer_pattern(cfg)
-
-            def layer_len(local):  # local layers need only a window-sized cache
-                return min(cfg.window, max_len) if local and cfg.window else max_len
-
-            return {"periods": [[kv(layer_len(local)) for local in period] for _ in range(n_periods)],
-                    "remainder": [kv(layer_len(local)) for local in rem]}
-        if cfg.family == "ssm":
-            return {"layers": [ssm_cache() for _ in range(cfg.num_layers)]}
-        if cfg.family == "hybrid":
-            n_groups, rem_n = hybrid_layout(cfg)
-            return {"groups": [{"mamba": [ssm_cache() for _ in range(cfg.attn_every)], "attn": kv(max_len)}
-                               for _ in range(n_groups)],
-                    "remainder": [ssm_cache() for _ in range(rem_n)]}
-        if enc_out is None:
-            raise ValueError("the audio decode cache needs the encoder's output enc_out")
-        # Cross K/V are recomputed from enc_out every step; "cross" is the
-        # reference's placeholder entry.
-        return {"dec_layers": [{"self": kv(max_len), "cross": kv(8)} for _ in range(cfg.num_layers)],
-                "enc_out": enc_out.to(device=self.device, dtype=kw["dtype"])}
+        return init_cache(self.cfg, batch_size, max_len, enc_out=enc_out, device=self.device)
 
     def decode_step(self, caches: dict, token: torch.Tensor):
         """token: (B, 1) int → (logits (B, 1, V) float32, new caches)."""
-        x = self.embed[token.to(self.device)]
+        x = self._embed(token.to(self.device))
         if self.cfg.family == "audio":
             enc_out = caches["enc_out"]
             x, new_caches = self._decoder_audio(x, enc_out, None, caches=caches)

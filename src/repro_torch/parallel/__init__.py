@@ -1,1 +1,1 @@
-"""Step builders (single device; the sharded steps are not ported yet)."""
+"""Sharding rules (DTensor placements) and the single-device and sharded step builders."""

@@ -14,6 +14,12 @@ so the paths are the port's state names (``params/embed``,
 ``opt/mu/groups.0.1.w_xz``, ``opt/step``). numpy has no bfloat16: such a
 leaf is stored as its uint16 bits, with ``bfloat16`` as its manifest dtype,
 and restored bit for bit.
+
+Sharded state (DTensors) is saved by gathering full tensors (every rank
+takes part in the gather; rank 0 writes, and the others wait for the
+commit), and restored onto any mesh: each leaf is loaded full and placed
+by ``shardings`` (the reference's elastic restore: ``device_put`` with the
+new shardings), so a (4, 2) checkpoint resumes on a (3, 2) mesh.
 """
 
 from __future__ import annotations
@@ -45,8 +51,23 @@ def _unflatten(like: Any, leaves: dict[str, Any], prefix: str = "") -> Any:
     return leaves[prefix[:-1]]
 
 
+def _is_dtensor(t) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _distributed() -> bool:
+    return torch.distributed.is_available() and torch.distributed.is_initialized()
+
+
 def _to_host(leaf) -> tuple[np.ndarray, str]:
-    """(array to store, dtype name); bfloat16 goes as its uint16 bits."""
+    """(array to store, dtype name); bfloat16 goes as its uint16 bits; a
+    DTensor is gathered to its full tensor first."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     t = torch.as_tensor(leaf).detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -69,10 +90,16 @@ def save_checkpoint(directory: str | Path, step: int, tree: Any, *, extra: dict 
     """Write checkpoint; returns the final path (or the writer thread if async).
 
     The device → host copy happens before this returns, in both modes, so
-    the caller may go on changing its tensors.
+    the caller may go on changing its tensors. With a process group up,
+    every rank calls this: rank 0 writes, and in the synchronous mode the
+    others return after its commit.
     """
     directory = Path(directory)
     host = [(path, *_to_host(leaf)) for path, leaf in _flatten(tree)]
+    if _distributed() and torch.distributed.get_rank() != 0:
+        if not async_:
+            torch.distributed.barrier()
+        return directory / f"step_{step:09d}"
 
     def _write() -> Path:
         tmp = directory / f".tmp_step_{step:09d}"
@@ -98,7 +125,10 @@ def save_checkpoint(directory: str | Path, step: int, tree: Any, *, extra: dict 
         t = threading.Thread(target=_write, daemon=True)
         t.start()
         return t
-    return _write()
+    final = _write()
+    if _distributed():
+        torch.distributed.barrier()
+    return final
 
 
 def _gc(directory: Path, keep: int) -> None:
@@ -114,9 +144,13 @@ def latest_step(directory: str | Path) -> int | None:
 
 
 def restore_checkpoint(directory: str | Path, like: Any, *, step: int | None = None,
-                       verify: bool = True) -> tuple[Any, dict]:
+                       verify: bool = True, shardings: Any = None) -> tuple[Any, dict]:
     """Load into the structure of ``like``: each leaf takes the dtype and
     device of ``like``'s leaf at its path. Returns (tree, extra).
+
+    ``shardings``, a tree like ``like`` of ``parallel.sharding.NamedSharding``
+    (None leaves stay plain), places each loaded leaf as a DTensor on its
+    mesh: the elastic restore onto a mesh other than the saved one.
 
     Raises FileNotFoundError if no committed checkpoint exists, ValueError
     on a structure or shape mismatch, IOError on a CRC mismatch.
@@ -142,4 +176,10 @@ def restore_checkpoint(directory: str | Path, like: Any, *, step: int | None = N
         if tuple(arr.shape) != tuple(like_t.shape):
             raise ValueError(f"shape mismatch at {rec['path']}: {arr.shape} vs {tuple(like_t.shape)}")
         leaves[path] = _from_host(arr, rec["dtype"]).to(device=like_t.device, dtype=like_t.dtype)
+    if shardings is not None:
+        from ..parallel.sharding import NamedSharding, distribute
+
+        for path, sh in _flatten(shardings):
+            if isinstance(sh, NamedSharding):
+                leaves[path] = distribute(leaves[path], sh)
     return _unflatten(like, leaves), manifest["extra"]

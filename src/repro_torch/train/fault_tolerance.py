@@ -1,6 +1,8 @@
-"""Fault-tolerance utilities: failure injection and the heartbeat monitor
-(``repro.train.fault_tolerance``; ``largest_mesh`` waits for the port's
-``parallel/``)."""
+"""Fault-tolerance utilities: failure injection, heartbeats, elastic meshes
+(``repro.train.fault_tolerance``). ``largest_mesh`` gives the grid an
+elastic restore reshards onto (``train.checkpoint.restore_checkpoint``
+with ``shardings``; meshes in ``launch.mesh``, rules in
+``parallel.sharding``)."""
 
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ class Heartbeat:
 
     Workers ping; a monitor thread marks any worker silent for
     ``timeout_s`` as dead and invokes the callback (at scale: trigger
-    checkpoint-restore with a shrunken mesh).
+    checkpoint-restore with a shrunken mesh — see ``largest_mesh``).
     """
 
     num_workers: int
@@ -64,3 +66,17 @@ class Heartbeat:
 
     def stop(self):
         self._stop = True
+
+
+def largest_mesh(n_devices: int, prefer_model: int = 16) -> tuple[int, int]:
+    """Elastic re-mesh: biggest (data × model) grid ≤ n_devices.
+
+    Keeps the model axis as close to ``prefer_model`` as divisibility
+    allows, shrinking data parallelism first (the cheap direction: only
+    the per-device batch changes, parameters reshard along data only).
+    """
+    model = min(prefer_model, n_devices)
+    while model > 1 and n_devices % model:
+        model //= 2
+    data = n_devices // model
+    return (data, model)

@@ -89,7 +89,8 @@ class AdamW:
         def zeros():
             return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
 
-        return {"mu": zeros(), "nu": zeros(), "step": torch.zeros((), dtype=torch.int32)}
+        # A literal, so under FakeTensorMode (the dry run) it stays a known constant.
+        return {"mu": zeros(), "nu": zeros(), "step": torch.tensor(0, dtype=torch.int32)}
 
     def update(self, grads: Params, state: dict, params: Params,
                grad_norm: torch.Tensor | None = None) -> tuple[Params, dict]:

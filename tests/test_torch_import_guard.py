@@ -31,6 +31,7 @@ server_raised = None
 model_raised = None
 train_raised = None
 trainer_raised = None
+entry_raised = None
 if not torch.cuda.is_available():
     from repro_torch.api import solve_many
     from repro_torch.configs import get_arch
@@ -63,6 +64,19 @@ if not torch.cuda.is_available():
         train_raised = str(e)
     else:
         train_raised = False
+    from repro_torch.launch.train_gpt_ocs import make_gpt_trainer
+    from repro_torch.bench.matching import main as bench_main
+    from repro_torch.core.torchopt.auction import auction_maximize
+    entry_raised = {}
+    for name, call in (("gpt_twin", lambda: make_gpt_trainer(tiny=True)),
+                       ("bench_matching", lambda: bench_main(["--fast"])),
+                       ("auction_shim", lambda: auction_maximize(np.eye(4)))):
+        try:
+            call()
+        except RuntimeError as e:
+            entry_raised[name] = str(e)
+        else:
+            entry_raised[name] = False
     cpu = make_trainer(get_arch("zamba2-1.2b").reduced(), steps=1, batch=1, seq=8, lr=1e-3, device="cpu")
     try:
         Trainer(cpu.model, cpu.optimizer, cpu.stream, cpu.train_step, cpu.cfg)
@@ -72,7 +86,8 @@ if not torch.cuda.is_available():
         trainer_raised = False
 print(json.dumps({"modules": names, "leaked": leaked, "raised": raised, "server_raised": server_raised,
                   "model_raised": model_raised, "train_raised": train_raised,
-                  "trainer_raised": trainer_raised, "cuda": torch.cuda.is_available()}))
+                  "trainer_raised": trainer_raised, "entry_raised": entry_raised,
+                  "cuda": torch.cuda.is_available()}))
 """
 
 
@@ -118,6 +133,10 @@ def test_import_loads_no_jax_and_no_reference(probe):
         "repro_torch.flowsim.events", "repro_torch.serve.admission", "repro_torch.serve.cache",
         "repro_torch.serve.metrics", "repro_torch.serve.server", "repro_torch.serve.sessions",
         "repro_torch.serve.loadgen",
+        "repro_torch.parallel.sharding", "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+        "repro_torch.launch.perf", "repro_torch.launch.train_gpt_ocs", "repro_torch.analysis.collectives",
+        "repro_torch.analysis.roofline", "repro_torch.train.grad_compress", "repro_torch.core.torchopt.auction",
+        "repro_torch.bench.matching",
     ):
         assert name in probe["modules"]
 
@@ -135,3 +154,5 @@ def test_default_device_raises_without_cuda(probe):
     assert "device='cpu'" in probe["train_raised"]
     assert probe["trainer_raised"], "Trainer with no device ran on the CPU"
     assert "device='cpu'" in probe["trainer_raised"]
+    for name, msg in probe["entry_raised"].items():  # the gpt-100m twin, bench/matching, the auction shim
+        assert msg and "device='cpu'" in msg, f"{name} with no device ran on the CPU"

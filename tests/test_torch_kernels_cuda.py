@@ -439,3 +439,69 @@ def test_flowsim_and_attribution_on_a_card_report(cuda):
     for key in ("transmission_share", "delta_share", "idle_share", "online_delta_share"):
         assert got[key] == pytest.approx(want[key], rel=1e-4, abs=1e-7)
     assert card.summary()["warnings"] == 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_sharded_step_on_a_1x1_mesh_equals_the_unsharded_step(cuda):
+    """An in-process NCCL group of one rank: the sharded step of a reduced
+    dense model equals the unsharded one (loss 1e-6 relative, gradients 1e-5
+    of each tensor's largest entry, parameters 1e-5), and flash_attention
+    launches on the local shards through local_map."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.registry import build_model, concrete_inputs
+    from repro_torch.parallel.steps import (loss_and_grads, make_model_for_cell, make_optimizer,
+                                            make_sharded_train_step, make_train_step, shard_state)
+
+    cfg = get_arch("granite-3-8b").reduced()
+    batch = concrete_inputs(cfg, ShapeCfg("t", 64, 4, "train"), device="cuda")
+    model = build_model(cfg, device="cuda")
+    opt = make_optimizer()
+    params = model.init(0)
+    p1, _, m1 = make_train_step(model, opt)(params, opt.init(params), batch)
+    _, _, g1 = loss_and_grads(model, params, batch)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_debug_mesh(1, model=1)
+        assert mesh.device_type == "cuda"
+        smodel = make_model_for_cell(cfg, mesh, remat=False, device="cuda")
+        ps, os_, bs = shard_state(params, opt.init(params), batch, mesh)
+        before = flash_attention.launches
+        p2, _, m2 = make_sharded_train_step(smodel, opt, mesh)(ps, os_, bs)
+        assert flash_attention.launches - before == cfg.num_layers
+        with implicit_replication():
+            _, _, g2 = loss_and_grads(smodel, ps, bs)
+        assert float(m2["loss"]) == pytest.approx(float(m1["loss"]), rel=1e-6)
+        for k in p1:
+            g = g2[k].full_tensor()
+            assert float((g - g1[k]).abs().max()) <= 1e-5 * float(g1[k].abs().max()), k
+            torch.testing.assert_close(p2[k].full_tensor(), p1[k], rtol=0, atol=1e-5)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_auction_shim_on_the_card_equals_match_auction(cuda):
+    """The legacy shim on a CUDA W reaches auction_rounds (n ≤ 128) and
+    masked_row_top2 (above) and gives match_auction's permutation."""
+    from repro_torch.core.torchopt.auction import auction_maximize
+    from repro_torch.core.torchopt.matching import match_auction
+
+    rng = np.random.default_rng(20)
+    for n, counter in ((64, auction_rounds), (160, masked_row_top2)):
+        W = torch.from_numpy(_bonus_weights(rng, n)).to(cuda)
+        before = counter.launches
+        perm, conv = auction_maximize(W)
+        assert counter.launches > before and perm.device.type == "cuda" and bool(conv)
+        assert torch.equal(perm, match_auction(W[None]).perm[0])
+        assert torch.equal(perm.cpu(), auction_maximize(W.cpu())[0])

@@ -19,6 +19,14 @@ attention) and its bytes (each tensor input read once, each output written
 once; views and metadata move none). The ops DTensor's sharding
 propagation runs on whole-tensor stand-ins to learn output shapes are not
 the rank's work and are not counted.
+
+A kernel of the port is counted at the kernel's own cost: while a counter
+is active it is ``kernels.backend.cost_hook``, through which the wrappers
+(``flash_attention``, ``ssd_chunk``) run a call; it adds
+``analysis.roofline.kernel_cost`` once and counts none of the ops of the
+plain version that a CPU or fake tensor runs in its place.
+Everything else stays eager and unfused: each op's inputs and outputs, as
+PyTorch runs them.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from dataclasses import dataclass, field
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..kernels import backend
 
 _COLLECTIVES = {
     "all_reduce": "all-reduce", "all_reduce_": "all-reduce", "all_reduce_coalesced": "all-reduce",
@@ -117,7 +127,8 @@ class LocalCounter(TorchDispatchMode):
     """Counts one rank's local work under a traced step; see the module doc.
 
     ``flops`` and ``bytes`` are Python ints (exact at any size),
-    ``collectives`` a ``CollectiveStats``.
+    ``collectives`` a ``CollectiveStats``; ``flops_by_op`` splits the FLOPs
+    by op (``bmm``, ``mm``, a kernel's name, ...).
     """
 
     def __init__(self):
@@ -127,7 +138,34 @@ class LocalCounter(TorchDispatchMode):
         self._flop_fns = flop_registry
         self.flops = 0
         self.bytes = 0
+        self.flops_by_op = defaultdict(int)
         self.collectives = CollectiveStats()
+        self._in_kernel = 0
+        self._outer_hook = None
+
+    def __enter__(self):
+        self._outer_hook, backend.cost_hook = backend.cost_hook, self._kernel_call
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        backend.cost_hook = self._outer_hook
+        return super().__exit__(*exc)
+
+    def _kernel_call(self, name: str, shape: dict, run):
+        """One call of kernel ``name`` (``roofline.kernel_cost``'s names and
+        shape keys): its FLOPs and bytes once, and none of the ops ``run``
+        dispatches."""
+        from .roofline import kernel_cost
+
+        flops, nbytes = kernel_cost(name, **shape)
+        self.flops += flops
+        self.flops_by_op[name] += flops
+        self.bytes += nbytes
+        self._in_kernel += 1
+        try:
+            return run()
+        finally:
+            self._in_kernel -= 1
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -136,7 +174,7 @@ class LocalCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented  # DTensor runs it on the local tensors, which come back here
         out = func(*args, **kwargs)
-        if _in_sharding_propagation():
+        if self._in_kernel or _in_sharding_propagation():
             return out
         packet = func._overloadpacket
         name = packet.__name__
@@ -149,7 +187,9 @@ class LocalCounter(TorchDispatchMode):
             return out
         fn = self._flop_fns.get(packet)
         if fn is not None:
-            self.flops += int(fn(*args, **kwargs, out_val=out))
+            flops = int(fn(*args, **kwargs, out_val=out))
+            self.flops += flops
+            self.flops_by_op[name] += flops
         if func.is_view or name in _FREE or ns == "prim":
             return out
         flat_in = list(args) + list(kwargs.values())
@@ -158,4 +198,5 @@ class LocalCounter(TorchDispatchMode):
 
     def record(self) -> dict:
         return {"flops": self.flops, "bytes": self.bytes, "wire": self.collectives.total_wire_bytes,
-                "collectives": self.collectives.as_dict()}
+                "flops_by_op": dict(self.flops_by_op), "collectives": self.collectives.as_dict()}
+

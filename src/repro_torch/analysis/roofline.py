@@ -16,6 +16,8 @@ from __future__ import annotations
 
 from dataclasses import asdict, dataclass
 
+import numpy as np
+
 from ..configs.base import ModelConfig, ShapeCfg
 
 # NVIDIA H100 SXM data-sheet peaks (dense), per chip.
@@ -24,6 +26,41 @@ H100_SXM = {
     "hbm_bw": 3.35e12,          # B/s, HBM3
     "link_bw": 450e9,           # B/s a direction, NVLink 4
 }
+
+
+def attended_pairs(Sq: int, Sk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the attention mask keeps, queries aligned to the end
+    of the keys: the work an exact kernel needs."""
+    qpos = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
+    hi = np.minimum(Sk - 1, qpos) if causal else np.full(Sq, Sk - 1, dtype=np.int64)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(Sq, dtype=np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def kernel_cost(name: str, **shape) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call of a kernel of the port: each input read
+    once and each output written once, and the operations this call's
+    inputs need. The card's bound in ``chip_smoke.py`` and the dry run's
+    counts (``analysis.collectives.LocalCounter``) both take them from here.
+
+    ``flash_attention``: B, Hq, Hkv, Sq, Sk, D, causal, window, itemsize;
+    4·B·Hq·(attended pairs)·D FLOPs, q, k, v read and o written.
+    ``ssd_chunk``: BH, S, L (the chunk), N, P, itemsize (of xd, B and C);
+    per chunk the decayed scores C·Bᵀ, their product with xd (L(L+1)/2
+    pairs each) and the chunk state Bᵀ·xd; xd, B, C and the float32 log
+    gates read, the float32 outputs, states and gates written.
+    """
+    if name == "flash_attention":
+        B, Hq, Hkv, Sq, Sk, D = (shape[k] for k in ("B", "Hq", "Hkv", "Sq", "Sk", "D"))
+        flops = 4 * B * Hq * D * attended_pairs(Sq, Sk, shape["causal"], shape["window"])
+        return flops, shape["itemsize"] * 2 * (B * Hq * Sq * D + B * Hkv * Sk * D)
+    if name == "ssd_chunk":
+        BH, S, L, N, P = (shape[k] for k in ("BH", "S", "L", "N", "P"))
+        nc = S // L
+        flops = BH * nc * (L * (L + 1) * (N + P) + 2 * L * N * P)
+        nbytes = BH * S * (shape["itemsize"] * (P + 2 * N) + 4 + 4 * P) + 4 * BH * nc * (N * P + 1)
+        return flops, nbytes
+    raise ValueError(f"no cost for kernel {name!r}")
 
 
 def count_params(params_shape: dict) -> tuple[int, int]:

@@ -113,6 +113,61 @@ def run(sizes, reps: int, device=None, only: tuple[str, ...] | None = None) -> l
     return rows
 
 
+# The pieces of an auction_fused dispatch that fused_split times: name -> function of core.torchopt.matching.
+SPLIT = {"eps": "_eps_schedule", "kernel": "fused_auction", "polish": "polish_2swap"}
+
+
+def fused_split(n: int, reps: int = 5) -> dict:
+    """One ``auction_fused`` dispatch on ``bench_weights(n)`` split by CUDA
+    events on the card's timeline (median of ``reps`` dispatches, ms):
+    ``eps`` (the ε schedule: wmax read to the host, the schedule formed
+    there and copied back), ``kernel`` (the ``fused_auction`` call),
+    ``polish`` (the ``polish_2swap`` call) and ``rest``, the dispatch's
+    other time up to the end of its last operation; ``total`` is their sum
+    and ``wall`` the host's clock around the call and a sync. Each piece
+    includes the host time the card waits for before it starts."""
+    import torch
+
+    from ..core.torchopt import matching
+
+    W = torch.from_numpy(bench_weights(n)).cuda()[None]
+    saved = {name: getattr(matching, attr) for name, attr in SPLIT.items()}
+    marks: dict[str, tuple] = {}
+
+    def timed(name):
+        def call(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = saved[name](*args, **kw)
+            end.record()
+            marks[name] = start, end
+            return out
+        return call
+
+    rows = []
+    try:
+        for name, attr in SPLIT.items():
+            setattr(matching, attr, timed(name))
+        matching.match_auction_fused(W)
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            matching.match_auction_fused(W)
+            end.record()
+            torch.cuda.synchronize()
+            row = {name: a.elapsed_time(b) for name, (a, b) in marks.items()}
+            row["total"] = start.elapsed_time(end)
+            row["rest"] = row["total"] - sum(row[name] for name in SPLIT)
+            row["wall"] = 1e3 * (time.perf_counter() - t0)
+            rows.append(row)
+    finally:
+        for name, attr in SPLIT.items():
+            setattr(matching, attr, saved[name])
+    return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+
+
 def check(rows: list[dict]) -> list[str]:
     """Gates: quality ≤ 1.10 everywhere; fused ≥ 1.5× auction at n ≥ 256."""
     failures = []

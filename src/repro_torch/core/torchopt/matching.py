@@ -12,7 +12,8 @@ batch dimension. Every matcher takes ``W`` (B, n, n) float32 and returns a
     auction_fr     combined forward-reverse auction; the same launches with
                    reverse rounds on.
     auction_fused  the whole auction in one ``auction_fused`` kernel launch,
-                   then greedy completion and a 2-swap polish.
+                   then greedy completion and a 2-swap polish in one
+                   ``polish_2swap`` launch.
 
 JAX ``vmap``s its ``while_loop``s; here each lane runs its own loop (in its
 own thread block on the card, under a per-lane done mask in the round
@@ -28,7 +29,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from ...kernels.auction_bid.ops import ROUNDS_MAX_N, auction_round_loop, auction_rounds
-from ...kernels.auction_fused.ops import fused_auction
+from ...kernels.auction_fused.ops import fused_auction, polish_2swap
+from ...kernels.auction_fused.ref import complete_greedy as _complete_greedy
 
 # float32 prices saturate once ε < ulp(price); floor ε at two ulps of wmax.
 _EPS_FLOOR = 2.0**-22
@@ -95,18 +97,6 @@ def _eps_schedule(W: torch.Tensor, num_phases: int) -> torch.Tensor:
     return (start[:, None] * ratio[:, None] ** steps[None, :]).to(W.device)
 
 
-def _complete_greedy(row2col: torch.Tensor, col2row: torch.Tensor) -> torch.Tensor:
-    """Pair leftover rows with leftover columns in rank order, so the result
-    is always a permutation."""
-    n = row2col.shape[1]
-    un_r = row2col < 0
-    un_c = col2row < 0
-    rank_r = torch.cumsum(un_r.long(), dim=1) - 1
-    order_c = torch.argsort((~un_c).to(torch.int8), dim=1, stable=True)
-    fill = torch.gather(order_c, 1, torch.clamp(rank_r, 0, n - 1))
-    return torch.where(un_r, fill, row2col)
-
-
 def _prepare(W, num_phases, max_iters):
     W = W.to(torch.float32).contiguous()
     n = W.shape[-1]
@@ -171,32 +161,6 @@ def match_auction_fr(
     return _run_rounds(W, num_phases, max_iters, True, prices0)
 
 
-def _polish_2swap(W: torch.Tensor, perm: torch.Tensor, max_swaps: int) -> torch.Tensor:
-    """Greedy best-pair 2-swap polish, per lane, until no transposition
-    improves the assignment or ``max_swaps`` swaps ran."""
-    B, n, _ = W.shape
-    perm = perm.clone()
-    lanes = torch.arange(B, device=W.device)
-    it = torch.zeros((B,), dtype=torch.int64, device=W.device)
-    improved = torch.ones((B,), dtype=torch.bool, device=W.device)
-    while True:
-        active = improved & (it < max_swaps)
-        if not bool(active.any()):
-            break
-        cur = torch.gather(W, 2, perm[..., None])[..., 0]
-        cross = torch.gather(W, 2, perm[:, None, :].expand(B, n, n))
-        gain = cross + cross.transpose(1, 2) - cur[:, :, None] - cur[:, None, :]
-        flat = torch.argmax(gain.reshape(B, n * n), dim=1)
-        i, ip = flat // n, flat % n
-        do = (gain[lanes, i, ip] > 0) & active
-        pi, pip = perm[lanes, i], perm[lanes, ip]
-        perm[lanes, i] = torch.where(do, pip, pi)
-        perm[lanes, ip] = torch.where(do, pi, pip)
-        it += active.long()
-        improved = torch.where(active, do, improved)
-    return perm
-
-
 def match_auction_fused(
     W: torch.Tensor,
     *,
@@ -205,7 +169,7 @@ def match_auction_fused(
     prices0: torch.Tensor | None = None,
 ) -> MatchResult:
     """The whole forward auction in one ``fused_auction`` call, then greedy
-    completion and the 2-swap polish.
+    completion and the 2-swap polish in one ``polish_2swap`` call.
 
     With ``prices0`` (a warm start) the call enters the ε schedule at its
     tail: the last ``max(2, num_phases // 2)`` phases.
@@ -223,9 +187,7 @@ def match_auction_fused(
     r2c, c2r, prices, rounds, _ = fused_auction(
         W, prices, eps_sched.contiguous(), max_iters=max_iters
     )
-    r2c, c2r = r2c.long(), c2r.long()
-    converged = (r2c >= 0).all(dim=1)
-    perm = _polish_2swap(W, _complete_greedy(r2c, c2r), max_swaps=2 * n)
+    perm, converged = polish_2swap(W, r2c, c2r, max_swaps=2 * n)
     return MatchResult(perm, converged, prices, rounds.long())
 
 

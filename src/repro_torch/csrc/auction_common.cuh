@@ -26,6 +26,30 @@ __device__ __forceinline__ void merge(float& v1, float& v2, int& j1,
   }
 }
 
+// One more value v at index t into a lane's running top two. A lane sees its
+// indices in increasing order, so the strict compare keeps the first index
+// of a tie, and a tied value becomes the second best.
+__device__ __forceinline__ void top2_step(float v, int t, float& v1, float& v2, int& j1) {
+  if (v > v1) {
+    v2 = v1;
+    v1 = v;
+    j1 = t;
+  } else {
+    v2 = fmaxf(v2, v);
+  }
+}
+
+// The warp's top two of the lanes' (v1, v2, j1) by `merge`, on every lane.
+__device__ __forceinline__ void warp_top2(float& v1, float& v2, int& j1) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o1 = __shfl_xor_sync(0xffffffffu, v1, off);
+    const float o2 = __shfl_xor_sync(0xffffffffu, v2, off);
+    const int oj = __shfl_xor_sync(0xffffffffu, j1, off);
+    merge(v1, v2, j1, o1, o2, oj);
+  }
+}
+
 // Monotone map float -> unsigned: a < b  iff  code(a) < code(b).
 __device__ __forceinline__ unsigned order_code(float f) {
   const unsigned u = __float_as_uint(f);

@@ -1,6 +1,8 @@
 // The whole forward epsilon-scaling auction in one launch: one thread block
 // cluster per instance where the instance's W fits in the cluster's shared
-// memory, else one block per instance.
+// memory, or one block per instance (the wrapper picks, kernels/
+// auction_fused/ops.py::pick_kernel). A third kernel, auction_polish_kernel,
+// is the fused matcher's tail: greedy completion and the 2-swap polish.
 //
 // Replaces the TPU kernel src/repro/kernels/auction_fused/kernel.py::
 // _fused_auction_kernel (launched by fused_auction_pallas). Plain version:
@@ -20,10 +22,13 @@
 // Bound on the H100: the chain of rounds. A call runs thousands of rounds one
 // after another (~2,300-3,600 a lane at n = 512, P = 16), each a few
 // dependent steps with barriers between them, and does ~2n flops a bidding
-// row (2 bidders in the median round): the floor is rounds x a round's
-// latency, far above the bytes or flops bound. One block on one SM per
-// instance, streaming the bidding rows of W from L2 every round, takes
-// ~2.9 us a round at n = 512; a cluster that holds W takes ~1.8.
+// row (10-15 bidders a round on average at n = 256-1024 on bench/matching's
+// weights): the floor is rounds x a round's latency, far above the bytes or
+// flops bound. On an NVIDIA H100 80GB HBM3
+// (tools/kernel_variants.py fused) a round of one lane at n = 512 takes
+// ~1.55 us on 16 CTAs, ~1.65 on one block, ~1.73 on 8 CTAs; a bid, most of
+// a round, is ~1,300-1,800 cycles of one warp's dependent loads, top twos
+// and reductions (tools/fused_round_profile.py).
 //
 // Cluster kernel (n up to cluster_max_n): C CTAs (8, or 16 where the card
 // allows a non-portable cluster) on neighbouring SMs share one instance. CTA
@@ -52,12 +57,19 @@
 // into another CTA's shared memory lost bids, so every 64-bit atomic here is
 // local.
 //
-// One-block kernel (larger n): one block of 1024 threads per instance, W
-// streamed from L2, prices and maps in shared memory (20 bytes a column), the
-// same packed word in a shared atomicMax, two block barriers a round.
+// One-block kernel (any n): one block of 1024 threads per instance, W read
+// from L2, prices and maps in shared memory, the same packed word in a shared
+// atomicMax, two block barriers a round. The unassigned rows are kept in a
+// list (two buffers, used in alternate rounds: a bidder lists itself for the
+// next round, a kicked owner is listed by its column's resolve), and warp w
+// takes entries w, w + 32, ...: a round's ~10 bids land on ~10 warps, where
+// rows owned by warp (rows tested one by one) put two on one warp in most
+// rounds. A lane issues its 16-byte loads of the row, four at a time, before
+// it uses them, and keeps four running top twos. 28 bytes a column.
 //
-// Both kernels take a warp's top two with three redux.sync reductions on the
-// order codes (auction_common.cuh) rather than five rounds of shuffles.
+// Both kernels take a warp's top two with redux.sync reductions on the order
+// codes (auction_common.cuh) rather than five rounds of shuffles: the best,
+// then its first column and the best of the other columns side by side.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -73,60 +85,107 @@ namespace {
 
 using auction::kNeg;
 using auction::kNegHalf;
+using auction::merge;
 using auction::order_code;
 using auction::order_decode;
 using auction::pack;
 using auction::packed_bid;
 using auction::packed_who;
+using auction::top2_step;
 
 constexpr int kBlockThreads = 1024;   // the one-block kernel
 constexpr int kClusterThreads = 512;  // one CTA of the cluster kernel
 constexpr size_t kSmemLimit = 232448;  // 227 KB: the most one block may use
 constexpr size_t kHead = 16;           // bid total (8 bytes) and unassigned count
+constexpr size_t kBlockHead = 32;      // the same and the one-block kernel's two list counts
 
-// One more column c of value v into a lane's running top two (first column
-// on ties: the lane sees its columns in increasing order).
-__device__ __forceinline__ void top2_step(float v, int c, float& v1, float& v2, int& j) {
-  if (v > v1) {
-    v2 = v1;
-    v1 = v;
-    j = c;
-  } else {
-    v2 = fmaxf(v2, v);
-  }
+// A warp's bid for one row: each lane keeps the top two of row[c] -
+// prices[c] over its columns; then the warp's best value, its first column,
+// and the best value of every other column, by redux.sync on order codes.
+// The top two with first-column ties do not depend on how the columns are
+// dealt to the lanes. Returns inc and sets j1 on every lane.
+__device__ __forceinline__ float warp_inc(float v1, float v2, int j, float e, int& j1) {
+  const unsigned code = order_code(v1);
+  const unsigned best = __reduce_max_sync(0xffffffffu, code);
+  const bool top = code == best;
+  // The next three need only `best`, so they run side by side. The second
+  // best is the best of the other columns: `best` again where two lanes
+  // share it, else the best of the top lane's second and the others' best.
+  j1 = static_cast<int>(__reduce_min_sync(0xffffffffu, top ? static_cast<unsigned>(j) : UINT_MAX));
+  const unsigned rest = __reduce_max_sync(0xffffffffu, order_code(top ? v2 : v1));
+  const bool tied = __popc(__ballot_sync(0xffffffffu, top)) > 1;
+  return order_decode(best) - fmaxf(order_decode(tied ? best : rest), kNeg) + e;
 }
 
-// A row's bid: each lane keeps the top two of row[c] - prices[c] over its
-// columns (four adjacent columns a load where rows and prices are 16-byte
-// aligned); then the warp's best value, its first column, and the best
-// value of every other column, each one redux.sync on order codes. The top
-// two with first-column ties do not depend on how the columns are dealt to
-// the lanes. Returns inc and sets j1 on every lane.
-__device__ __forceinline__ float warp_bid(const float* row, const float* prices, int n, int lane,
+// The lanes' top twos: 16-byte loads where kVec = 4 (rows and prices 16-byte
+// aligned), else 4-byte ones, the row from device memory through the
+// read-only path (kGlobal) or from shared memory. A lane loads a chunk of its
+// columns' values and prices (kChunk 16-byte loads, or 2 kChunk 4-byte ones)
+// before it uses any of them, so a bid waits about one load latency a chunk
+// (n <= 512 is one chunk); a slot past the row's end loads the chunk's first
+// column and counts as -inf, which changes no top two, so no load or step is
+// behind a branch.
+// Each lane keeps four running top twos (column c in the (c % 4)-th), each
+// over increasing columns, so their dependent chains run side by side;
+// `merge` joins them exactly.
+constexpr int kChunk = 4;
+
+template <int kVec, bool kGlobal>
+__device__ __forceinline__ float warp_bid(const float* __restrict__ row, const float* prices, int n, int lane,
                                           float e, int& j1) {
-  float v1 = -CUDART_INF_F, v2 = -CUDART_INF_F;
-  int j = INT_MAX;
-  if ((n & 3) == 0 && ((reinterpret_cast<uintptr_t>(row) | reinterpret_cast<uintptr_t>(prices)) & 15) == 0) {
+  float v1[4], v2[4];
+  int j[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    v1[a] = v2[a] = -CUDART_INF_F;
+    j[a] = INT_MAX;
+  }
+  if constexpr (kVec == 4) {
     const float4* r4 = reinterpret_cast<const float4*>(row);
     const float4* p4 = reinterpret_cast<const float4*>(prices);
-    for (int q = lane; q < n / 4; q += 32) {
-      const float4 w = r4[q], p = p4[q];
-      top2_step(w.x - p.x, 4 * q, v1, v2, j);
-      top2_step(w.y - p.y, 4 * q + 1, v1, v2, j);
-      top2_step(w.z - p.z, 4 * q + 2, v1, v2, j);
-      top2_step(w.w - p.w, 4 * q + 3, v1, v2, j);
+    const int m = n >> 2;  // 16-byte loads a row
+    for (int base = lane; base < m; base += 32 * kChunk) {
+      float4 w[kChunk], p[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int q = base + 32 * u < m ? base + 32 * u : base;
+        w[u] = kGlobal ? __ldg(r4 + q) : r4[q];
+        p[u] = p4[q];
+      }
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int q = base + 32 * u;
+        const bool in = q < m;
+        top2_step(in ? w[u].x - p[u].x : -CUDART_INF_F, 4 * q, v1[0], v2[0], j[0]);
+        top2_step(in ? w[u].y - p[u].y : -CUDART_INF_F, 4 * q + 1, v1[1], v2[1], j[1]);
+        top2_step(in ? w[u].z - p[u].z : -CUDART_INF_F, 4 * q + 2, v1[2], v2[2], j[2]);
+        top2_step(in ? w[u].w - p[u].w : -CUDART_INF_F, 4 * q + 3, v1[3], v2[3], j[3]);
+      }
     }
   } else {
-    for (int c = lane; c < n; c += 32) top2_step(row[c] - prices[c], c, v1, v2, j);
+    constexpr int kLoads = 2 * kChunk;  // 4-byte loads a lane keeps in flight
+    for (int base = lane; base < n; base += 32 * kLoads) {
+      float w[kLoads], p[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int c = base + 32 * u < n ? base + 32 * u : base;
+        w[u] = kGlobal ? __ldg(row + c) : row[c];
+        p[u] = prices[c];
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int c = base + 32 * u;
+        top2_step(c < n ? w[u] - p[u] : -CUDART_INF_F, c, v1[u & 3], v2[u & 3], j[u & 3]);
+      }
+    }
   }
-  const unsigned best = __reduce_max_sync(0xffffffffu, order_code(v1));
-  j1 = static_cast<int>(__reduce_min_sync(0xffffffffu, order_code(v1) == best ? static_cast<unsigned>(j) : UINT_MAX));
-  // Column j1's lane offers its second best, every other lane its best.
-  const unsigned second = __reduce_max_sync(0xffffffffu, order_code(j == j1 ? v2 : v1));
-  return order_decode(best) - fmaxf(order_decode(second), kNeg) + e;
+  merge(v1[0], v2[0], j[0], v1[1], v2[1], j[1]);
+  merge(v1[2], v2[2], j[2], v1[3], v2[3], j[3]);
+  merge(v1[0], v2[0], j[0], v1[2], v2[2], j[2]);
+  return warp_inc(v1[0], v2[0], j[0], e, j1);
 }
 
-size_t block_smem_bytes(int n) { return kHead + static_cast<size_t>(n) * 20; }
+size_t block_smem_bytes(int n) { return kBlockHead + static_cast<size_t>(n) * 28; }
 
 size_t cluster_smem_bytes(int n, int C) {
   const size_t R = (static_cast<size_t>(n) + C - 1) / C;
@@ -143,6 +202,7 @@ __device__ __forceinline__ void cluster_barrier() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+template <int kVec>
 __global__ void __launch_bounds__(kBlockThreads)
 auction_fused_kernel(const float* __restrict__ W, const float* __restrict__ prices0,
                      const float* __restrict__ eps, int* __restrict__ r2c_out,
@@ -153,10 +213,12 @@ auction_fused_kernel(const float* __restrict__ W, const float* __restrict__ pric
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned long long* bid_total = reinterpret_cast<unsigned long long*>(smem);
   int* unassigned = reinterpret_cast<int*>(smem + 8);
-  unsigned long long* key = reinterpret_cast<unsigned long long*>(smem + kHead);  // [n]
+  int* count = unassigned + 1;  // [2] entries of each bidder list
+  unsigned long long* key = reinterpret_cast<unsigned long long*>(smem + kBlockHead);  // [n]
   float* prices = reinterpret_cast<float*>(key + n);
   int* r2c = reinterpret_cast<int*>(prices + n);
   int* c2r = r2c + n;
+  int* lists = c2r + n;  // [2][n] bidder lists, used in alternate rounds
 
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
@@ -179,24 +241,44 @@ auction_fused_kernel(const float* __restrict__ W, const float* __restrict__ pric
     for (int j = tid; j < n; j += nth) {
       r2c[j] = -1;
       c2r[j] = -1;
+      lists[j] = j;
     }
-    if (tid == 0) *unassigned = n;
+    if (tid == 0) {
+      *unassigned = n;
+      count[0] = n;
+      count[1] = 0;
+    }
     __syncthreads();
     int it = 0;
     // `unassigned` changes only between the two barriers of a round.
     while (it < max_iters && *unassigned > 0) {
-      // 1. Bids of the unassigned rows, one warp per row.
-      for (int i = warp; i < n; i += nwarps) {
+      const int cur = it & 1, nxt = cur ^ 1;
+      const int* list = lists + cur * n;
+      int* next = lists + nxt * n;
+      // 1. Bids: warp w takes entries w, w + 32, ... of this round's list.
+      //    The list holds every unassigned row once (and rows that won a
+      //    column since they were listed, which are skipped), so the bids
+      //    spread evenly over the warps. A bidder lists itself for the next
+      //    round; if it wins a column now, it is skipped there.
+      const int m = count[cur];
+      for (int t = warp; t < m; t += nwarps) {
+        const int i = list[t];
         if (r2c[i] >= 0) continue;  // same value across the warp
+        int at = 0;  // this bidder's entry in the next list (lane 0), stored after the bid
+        if (lane == 0) at = atomicAdd(&count[nxt], 1);
         int j1;
-        const float d = warp_bid(Wb + static_cast<long long>(i) * n, prices, n, lane, e, j1);
+        const float d = warp_bid<kVec, true>(Wb + static_cast<long long>(i) * n, prices, n, lane, e, j1);
         if (lane == 0) {
           atomicMax(&key[j1], pack(d, i));
+          next[at] = i;
           ++my_bids;
         }
       }
       __syncthreads();
-      // 2-3. Each column takes its best bid.
+      // 2-3. Each column takes its best bid. A kicked owner is listed for
+      //      the next round. A winner was unassigned and a kicked owner did
+      //      not bid, so no row is listed twice.
+      if (tid == 0) count[cur] = 0;  // this list is the one after next
       for (int j = tid; j < n; j += nth) {
         const unsigned long long k = key[j];
         if (k == 0ull) continue;
@@ -207,6 +289,7 @@ auction_fused_kernel(const float* __restrict__ W, const float* __restrict__ pric
         const int old = c2r[j];
         if (old >= 0) {
           r2c[old] = -1;
+          next[atomicAdd(&count[nxt], 1)] = old;
         } else {
           atomicSub(unassigned, 1);
         }
@@ -265,6 +348,9 @@ auction_fused_cluster_kernel(const float* __restrict__ W, const float* __restric
   const int warp = tid >> 5;
   const int nwarps = nth >> 5;
 
+  // 16-byte loads of the rows and prices where both are 16-byte aligned.
+  const bool vec4 =
+      (n & 3) == 0 && ((reinterpret_cast<uintptr_t>(Ws) | reinterpret_cast<uintptr_t>(prices)) & 15) == 0;
   const float* Wrows = W + (b * n + lo) * n;
   for (int t = tid; t < cnt * n; t += nth) Ws[t] = Wrows[t];
   for (int j = tid; j < n; j += nth) {
@@ -294,7 +380,9 @@ auction_fused_cluster_kernel(const float* __restrict__ W, const float* __restric
       for (int i = warp; i < cnt; i += nwarps) {
         if (r2c[lo + i] >= 0) continue;  // same value across the warp
         int j1;
-        const float d = warp_bid(Ws + static_cast<long long>(i) * n, prices, n, lane, e, j1);
+        const float* line = Ws + static_cast<long long>(i) * n;
+        const float d = vec4 ? warp_bid<4, false>(line, prices, n, lane, e, j1)
+                             : warp_bid<1, false>(line, prices, n, lane, e, j1);
         for (int q = lane; q < C; q += 32)
           cluster.map_shared_rank(box, q)[lo + i] = make_uint2(__float_as_uint(d), static_cast<unsigned>(j1) + 1u);
         if (lane == 0) ++my_bids;
@@ -351,6 +439,155 @@ auction_fused_cluster_kernel(const float* __restrict__ W, const float* __restric
   cluster.sync();  // no CTA exits while CTA 0 may still read its memory
 }
 
+// The matcher's tail, one block per instance: greedy completion of the
+// auction's maps, then the greedy best-pair 2-swap polish. Plain version:
+// repro_torch/kernels/auction_fused/ref.py::polish_2swap_ref, which this
+// kernel matches bit for bit.
+//   Completion: the k-th unassigned row (in row order) takes the k-th column
+//   of the order "unassigned columns, then assigned ones", each by index.
+//   Polish: with cur[i] = W[i, perm[i]] and gain[i, i'] =
+//   ((W[i, perm[i']] + W[i', perm[i]]) - cur[i]) - cur[i'], the first pair
+//   (in row-major order) of the largest gain swaps its columns while that
+//   gain is > 0, at most max_swaps times. A NaN gain counts as the largest,
+//   as in torch.argmax, and never swaps.
+constexpr int kPolishThreads = 1024;
+
+// b beats a: the larger gain (NaN above every number), then the lower index.
+__device__ __forceinline__ bool gain_beats(float bg, int bf, float ag, int af) {
+  const bool bn = bg != bg, an = ag != ag;
+  if (bn != an) return bn;
+  if (!bn && bg != ag) return bg > ag;
+  return bf < af;
+}
+
+__global__ void __launch_bounds__(kPolishThreads)
+auction_polish_kernel(const float* __restrict__ W, const float* __restrict__ Wt, const int* __restrict__ r2c,
+                      const int* __restrict__ c2r, long long* __restrict__ perm_out, bool* __restrict__ converged_out,
+                      int n, int max_swaps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* perm = reinterpret_cast<int*>(smem);         // [n]
+  float* cur = reinterpret_cast<float*>(perm + n);  // [n]
+  __shared__ float red_g[32];
+  __shared__ int red_f[32];
+  __shared__ int open_rows;
+
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nth >> 5;
+  const long long b = blockIdx.x;
+  const float* Wb = W + b * n * n;
+  const float* Wtb = Wt + b * n * n;
+
+  if (tid == 0) open_rows = 0;
+  __syncthreads();
+  for (int i = tid; i < n; i += nth) {
+    const int j = r2c[b * n + i];
+    perm[i] = j;
+    if (j < 0) open_rows = 1;
+  }
+  __syncthreads();
+  if (open_rows && tid == 0) {
+    int cu = 0, ca = 0;  // next unassigned and next assigned column
+    for (int i = 0; i < n; ++i) {
+      if (perm[i] >= 0) continue;
+      while (cu < n && c2r[b * n + cu] >= 0) ++cu;
+      if (cu < n) {
+        perm[i] = cu++;
+      } else {
+        while (c2r[b * n + ca] < 0) ++ca;
+        perm[i] = ca++;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += nth) cur[i] = Wb[static_cast<long long>(i) * n + perm[i]];
+  __syncthreads();
+
+  for (int it = 0; it < max_swaps; ++it) {
+    // Each thread visits its pairs in increasing flat index, so a strict
+    // compare keeps the first of a tie.
+    float g = -CUDART_INF_F;
+    int f = INT_MAX;
+    for (int i = warp; i < n; i += nwarps) {
+      const float* Wi = Wb + static_cast<long long>(i) * n;    // W[i, :], read at perm[k]
+      const float* Wc = Wtb + static_cast<long long>(perm[i]) * n;  // W[:, perm[i]], read at k
+      const float ci = cur[i];
+#pragma unroll 4
+      for (int k = lane; k < n; k += 32) {
+        const float x = ((__ldg(Wi + perm[k]) + __ldg(Wc + k)) - ci) - cur[k];
+        if (gain_beats(x, i * n + k, g, f)) {
+          g = x;
+          f = i * n + k;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float og = __shfl_xor_sync(0xffffffffu, g, off);
+      const int of = __shfl_xor_sync(0xffffffffu, f, off);
+      if (gain_beats(og, of, g, f)) {
+        g = og;
+        f = of;
+      }
+    }
+    if (lane == 0) {
+      red_g[warp] = g;
+      red_f[warp] = f;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      g = lane < nwarps ? red_g[lane] : -CUDART_INF_F;
+      f = lane < nwarps ? red_f[lane] : INT_MAX;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float og = __shfl_xor_sync(0xffffffffu, g, off);
+        const int of = __shfl_xor_sync(0xffffffffu, f, off);
+        if (gain_beats(og, of, g, f)) {
+          g = og;
+          f = of;
+        }
+      }
+      if (lane == 0) {
+        red_g[0] = g;
+        red_f[0] = f;
+      }
+    }
+    __syncthreads();
+    const float best = red_g[0];
+    const int at = red_f[0];
+    __syncthreads();  // every thread has read the winner before it is overwritten
+    if (!(best > 0.f)) break;
+    if (tid == 0) {
+      const int i = at / n, k = at % n;
+      const int pi = perm[i];
+      perm[i] = perm[k];
+      perm[k] = pi;
+      cur[i] = Wb[static_cast<long long>(i) * n + perm[i]];
+      cur[k] = Wb[static_cast<long long>(k) * n + perm[k]];
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < n; i += nth) perm_out[b * n + i] = perm[i];
+  if (tid == 0) converged_out[b] = !open_rows;
+}
+
+template <int kVec>
+int launch_block(const float* w, const float* p0, const float* ep, int* r, int* c, float* pr, int* ro,
+                 unsigned long long* bi, int B, int n, int P, int max_iters, cudaStream_t s) {
+  const size_t smem = block_smem_bytes(n);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(auction_fused_kernel<kVec>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auction_fused_kernel<kVec><<<B, kBlockThreads, smem, s>>>(w, p0, ep, r, c, pr, ro, bi, n, P, max_iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // cluster: 0 runs the one-block kernel; a power of two C in 1..16 the cluster
@@ -372,18 +609,12 @@ extern "C" int auction_fused_launch(const void* W, const void* prices0,
   float* pr = static_cast<float*>(prices);
   int* ro = static_cast<int*>(rounds);
   unsigned long long* bi = static_cast<unsigned long long*>(bids);
-  cudaError_t err;
   if (cluster == 0) {
-    const size_t smem = block_smem_bytes(n);
-    if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(auction_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    auction_fused_kernel<<<B, kBlockThreads, smem, s>>>(w, p0, ep, r, c, pr, ro, bi, n, P, max_iters);
-    return static_cast<int>(cudaGetLastError());
+    const bool aligned = (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+    return n % 4 == 0 && aligned ? launch_block<4>(w, p0, ep, r, c, pr, ro, bi, B, n, P, max_iters, s)
+                                 : launch_block<1>(w, p0, ep, r, c, pr, ro, bi, B, n, P, max_iters, s);
   }
+  cudaError_t err;
   const size_t smem = cluster_smem_bytes(n, cluster);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   err = cudaFuncSetAttribute(auction_fused_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -414,5 +645,25 @@ extern "C" int auction_fused_launch(const void* W, const void* prices0,
   err = cudaLaunchKernelEx(&cfg, auction_fused_cluster_kernel, w, p0, ep, r, c, pr, ro, bi, n, P,
                            max_iters);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Completion and 2-swap polish of each lane's maps (B, n) int32 into perm
+// (B, n) int64 and converged (B,) bool (every row assigned by the auction).
+// Wt is W transposed per lane, so that a row's partner terms W[k, perm[i]]
+// are read along a row of Wt.
+extern "C" int auction_polish_launch(const void* W, const void* Wt, const void* r2c, const void* c2r, void* perm,
+                                     void* converged, int B, int n, int max_swaps, void* stream) {
+  if (B < 1 || n < 1 || n > 8192 || max_swaps < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(n) * 8;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(auction_polish_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auction_polish_kernel<<<B, kPolishThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(W), static_cast<const float*>(Wt), static_cast<const int*>(r2c),
+      static_cast<const int*>(c2r),
+      static_cast<long long*>(perm), static_cast<bool*>(converged), n, max_swaps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,7 +34,9 @@ def _check(W: torch.Tensor, prices: torch.Tensor) -> None:
 
 
 def masked_row_top2(W: torch.Tensor, prices: torch.Tensor):
-    """Per-row ``(v1, v2, j1)`` of ``V = W − prices``; see ``ref.py``."""
+    """Per-row ``(v1, v2, j1)`` of ``V = W − prices``; see ``ref.py``. On the
+    card a block stages its instance's prices in shared memory, so m is at
+    most 58,112 there."""
     _check(W, prices)
     if W.device.type == "cpu":
         return masked_row_top2_ref(W, prices)

@@ -92,3 +92,44 @@ def fused_auction_ref(
             it += active.to(torch.int32)
         rounds += it
     return r2c.to(torch.int32), c2r.to(torch.int32), prices, rounds, bids
+
+
+def complete_greedy(row2col: torch.Tensor, col2row: torch.Tensor) -> torch.Tensor:
+    """Pair leftover rows with leftover columns in rank order, so the result
+    is always a permutation."""
+    n = row2col.shape[1]
+    un_r = row2col < 0
+    un_c = col2row < 0
+    rank_r = torch.cumsum(un_r.long(), dim=1) - 1
+    order_c = torch.argsort((~un_c).to(torch.int8), dim=1, stable=True)
+    fill = torch.gather(order_c, 1, torch.clamp(rank_r, 0, n - 1))
+    return torch.where(un_r, fill, row2col)
+
+
+def polish_2swap_ref(W: torch.Tensor, r2c: torch.Tensor, c2r: torch.Tensor, *, max_swaps: int):
+    """The fused matcher's tail: greedy completion of the maps, then the
+    greedy best-pair 2-swap polish, per lane, until no transposition improves
+    the assignment or ``max_swaps`` swaps ran. Returns ``(perm, converged)``:
+    (B, n) int64 and (B,) bool (every row assigned before completion)."""
+    converged = (r2c >= 0).all(dim=1)
+    perm = complete_greedy(r2c.long(), c2r.long())
+    B, n, _ = W.shape
+    lanes = torch.arange(B, device=W.device)
+    it = torch.zeros((B,), dtype=torch.int64, device=W.device)
+    improved = torch.ones((B,), dtype=torch.bool, device=W.device)
+    while True:
+        active = improved & (it < max_swaps)
+        if not bool(active.any()):
+            break
+        cur = torch.gather(W, 2, perm[..., None])[..., 0]
+        cross = torch.gather(W, 2, perm[:, None, :].expand(B, n, n))
+        gain = cross + cross.transpose(1, 2) - cur[:, :, None] - cur[:, None, :]
+        flat = torch.argmax(gain.reshape(B, n * n), dim=1)
+        i, ip = flat // n, flat % n
+        do = (gain[lanes, i, ip] > 0) & active
+        pi, pip = perm[lanes, i], perm[lanes, ip]
+        perm[lanes, i] = torch.where(do, pip, pi)
+        perm[lanes, ip] = torch.where(do, pi, pip)
+        it += active.long()
+        improved = torch.where(active, do, improved)
+    return perm, converged

@@ -12,6 +12,12 @@ library with a plain C interface, loaded with ``ctypes``. The library is
 cached under ``build/repro_torch/`` at the repository root, named by a hash
 of the sources', the headers' and the flags' contents, so an edited source,
 header or flag rebuilds and an unchanged tree loads at once.
+
+``cost_hook`` is None except while a dry run's counter is active
+(``analysis.collectives.LocalCounter`` sets it). A wrapper whose kernel a
+dry run counts at the kernel's cost then runs its call through it:
+``cost_hook(name, shape, run)`` counts the kernel once and returns
+``run()``.
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["resolve_device", "load_library", "launch", "current_stream", "library_path"]
+__all__ = ["resolve_device", "load_library", "launch", "current_stream", "library_path", "cost_hook"]
+
+cost_hook = None
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -51,6 +59,8 @@ _SIGNATURES = {
     "auction_rounds_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # W, prices0, eps, r2c, c2r, prices, rounds, bids, B, n, P, max_iters, cluster, stream
     "auction_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # W, Wt, r2c, c2r, perm, converged, B, n, max_swaps, stream
+    "auction_polish_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, o, BH, group, Sq, Sk, D, scale, causal, window, dtype, stream
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # xd, loga, B, C, y, states, gates, BH, S, L, N, P, dtype, stream

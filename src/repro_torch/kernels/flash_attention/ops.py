@@ -4,7 +4,9 @@
 ``repro.kernels.flash_attention.kernel.flash_attention_pallas``): a CUDA
 tensor launches the kernel (bfloat16 on the tensor cores, wgmma fed by TMA;
 float32 on the CUDA cores), a CPU tensor takes the plain ``mha_ref``.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches. A dry run's counter
+(``backend.cost_hook``) counts a call at the kernel's cost, not at its
+plain version's.
 
 ``mha`` is what the model calls: a ``torch.autograd.Function`` whose forward
 is ``flash_attention`` and whose backward recomputes through ``mha_ref``,
@@ -56,6 +58,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = D ** -0.5 if scale is None else float(scale)
+    if backend.cost_hook is not None:
+        return backend.cost_hook(
+            "flash_attention", dict(B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D, causal=causal, window=window,
+                                    itemsize=q.element_size()),
+            lambda: _flash_attention(q, k, v, causal, window, scale))
+    return _flash_attention(q, k, v, causal, window, scale)
+
+
+def _flash_attention(q, k, v, causal, window, scale):
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     if q.device.type == "cpu":
         o = mha_ref(q, k, v, causal=causal, window=window, scale=scale)
         if causal and Sq > Sk:

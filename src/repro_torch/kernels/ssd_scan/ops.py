@@ -3,7 +3,8 @@
 ``ssd_chunk`` wraps ``csrc/ssd_chunk.cu`` (the counterpart of
 ``repro.kernels.ssd_scan.kernel.ssd_chunk_pallas``): a CUDA tensor launches
 the kernel, a CPU tensor takes the plain ``ssd_chunk_ref``.
-``ssd_chunk.launches`` counts kernel launches.
+``ssd_chunk.launches`` counts kernel launches; a dry run's counter counts a
+call at the kernel's cost (``backend.cost_hook``).
 
 ``ssd_scan`` follows the reference's ``_ssd_fwd_impl``: the chunk pass, the
 cross-chunk recurrence ``H_out(c) = gate_c · H_in(c) + state_c`` (here in its
@@ -51,6 +52,15 @@ def ssd_chunk(xd: torch.Tensor, loga: torch.Tensor, B: torch.Tensor, C: torch.Te
         raise ValueError(f"S={S} not divisible by chunk={chunk}")
     if not (xd.device == loga.device == B.device == C.device):
         raise ValueError("ssd_chunk inputs lie on different devices")
+    if backend.cost_hook is not None:
+        return backend.cost_hook("ssd_chunk", dict(BH=BH, S=S, L=chunk, N=N, P=P, itemsize=xd.element_size()),
+                                 lambda: _ssd_chunk(xd, loga, B, C, chunk))
+    return _ssd_chunk(xd, loga, B, C, chunk)
+
+
+def _ssd_chunk(xd, loga, B, C, chunk):
+    BH, S, P = xd.shape
+    N = B.shape[-1]
     if xd.device.type == "cpu":
         return ssd_chunk_ref(xd, loga, B, C, chunk)
     if xd.device.type != "cuda":

@@ -157,6 +157,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, remat: bool = True,
         "bytes_per_device_est": resident["state_and_inputs"] + resident["saved_for_backward"],
         "hw": {"name": "H100 SXM data sheet", **H100_SXM},
         "roofline": roof.as_dict(),
+        "flops_by_op": metrics["flops_by_op"],  # bmm: the routed experts and the attention backward's recompute
         "calibration": calib,
         "options": {"remat": remat, "sp": sp, "donate": donate, "shard_mode": shard_mode},
         "counts_not_times": True,

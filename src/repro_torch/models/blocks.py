@@ -62,19 +62,50 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, S, H * dh)
 
 
+def _write_slot(cache, slot: int, new):
+    """``cache[:, :, slot] = new``, in place: cache (B, H, Smax, dh), new
+    (B, H, dh). On a DTensor cache each rank writes its local shard (a rank
+    of a cache sharded over its sequence only where it holds the slot): an
+    indexed write into a sharded DTensor lands in a temporary."""
+    from ..parallel.sharding import is_dtensor
+
+    if not is_dtensor(cache):
+        cache[:, :, slot] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, local = cache.device_mesh, cache.to_local()
+    pl = tuple(Replicate() if p == Shard(2) else p for p in cache.placements)
+    new = new.to(cache.dtype).redistribute(mesh, pl).to_local()
+    for i, p in enumerate(cache.placements):
+        if p == Shard(2):
+            slot -= mesh.get_local_rank(i) * local.shape[2]
+    if 0 <= slot < local.shape[2]:
+        local[:, :, slot] = new
+
+
 def _decode_attention(q, k_cache, v_cache, keep, scale):
     """Masked single-query attention over a fixed-size cache, in float32.
 
     q: (B, Hq, 1, dh); caches: (B, Hkv, Smax, dh); keep: (Smax,) bool mask of
     the valid cache slots. On DTensors it runs on each rank's (row, head)
-    shards through ``local_map``; a cache sharded over its sequence is
-    gathered for it.
+    shards through ``local_map``; a cache sharded over its sequence (the
+    reference's flash-decode ``cache_shardings``) stays so: each rank of
+    the model axis attends over its slots (``_decode_attention_slots``).
     """
-    from ..parallel.sharding import head_placements, is_dtensor, local_call
+    from ..parallel.sharding import is_dtensor
 
     if is_dtensor(q):
+        from torch.distributed.tensor import Shard
+
+        from ..parallel.sharding import head_placements, local_call, mesh_axes
+
+        mesh = q.device_mesh
+        names = list(mesh_axes(mesh))
+        if "model" in names and k_cache.placements[names.index("model")] == Shard(2):
+            return _decode_attention_slots(q, k_cache, v_cache, keep, scale)
         keep = keep.full_tensor() if is_dtensor(keep) else keep
-        pl = head_placements(q.device_mesh, q.shape[0], k_cache.shape[1])
+        pl = head_placements(mesh, q.shape[0], k_cache.shape[1])
         return local_call(lambda q, k, v: _decode_attention(q, k, v, keep, scale), (pl, pl, pl), pl,
                           q, k_cache, v_cache)
     B, Hq, _, dh = q.shape
@@ -86,6 +117,46 @@ def _decode_attention(q, k_cache, v_cache, keep, scale):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
     return o.reshape(B, Hq, 1, dh).to(q.dtype)
+
+
+def _decode_attention_slots(q, k_cache, v_cache, keep, scale):
+    """Flash-decode over a cache sharded over its sequence on the model axis:
+    each rank of that axis scores the query against its slots of the cache
+    (its slice of ``keep`` masks them); the ranks then combine by
+    log-sum-exp: the scores' max over the axis first (an all-reduce of
+    max), then the partial sums of exp(s − max)·v and of exp(s − max) (one
+    all-reduce), then the division. The cache is never gathered."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..parallel.sharding import batch_axes, local_call, mesh_axes
+
+    mesh = q.device_mesh
+    axes = mesh_axes(mesh)
+    baxes = batch_axes(mesh)
+    B, Hq, _, dh = q.shape
+    Hkv, smax = k_cache.shape[1], k_cache.shape[2]
+    rows = Shard(0) if B % math.prod(axes[a] for a in baxes) == 0 else Replicate()
+    group = (mesh, list(axes).index("model"))
+    n_local = smax // axes["model"]
+    lo = mesh.get_local_rank("model") * n_local
+    mine = keep[lo:lo + n_local]
+
+    def local(q, k, v):
+        Bl = q.shape[0]
+        qf = q.float().reshape(Bl, Hkv, Hq // Hkv, dh)
+        s = torch.einsum("bhgd,bhsd->bhgs", qf, k.float()) * scale
+        s = torch.where(mine[None, None, None, :], s, -1e30)
+        m = funcol.all_reduce(s.amax(dim=-1, keepdim=True), "max", group)
+        p = torch.exp(s - m)
+        num_den = torch.cat([torch.einsum("bhgs,bhsd->bhgd", p, v.float()), p.sum(-1, keepdim=True)], dim=-1)
+        num_den = funcol.all_reduce(num_den, "sum", group)
+        o = num_den[..., :dh] / num_den[..., dh:]
+        return o.reshape(Bl, Hq, 1, dh).to(q.dtype)
+
+    pl_q = tuple(rows if a in baxes else Replicate() for a in axes)
+    pl_kv = tuple(rows if a in baxes else Shard(2) if a == "model" else Replicate() for a in axes)
+    return local_call(local, (pl_q, pl_kv, pl_kv), pl_q, q, k_cache, v_cache)
 
 
 class Attention(nn.Module):
@@ -155,8 +226,8 @@ class Attention(nn.Module):
                 keep = slots <= pos
                 if window is not None:
                     keep &= slots > pos - window
-            k_cache[:, :, write] = k[:, :, 0].to(k_cache.dtype)
-            v_cache[:, :, write] = v[:, :, 0].to(v_cache.dtype)
+            _write_slot(k_cache, write, k[:, :, 0])
+            _write_slot(v_cache, write, v[:, :, 0])
             new_cache = {"k": k_cache, "v": v_cache, "pos": pos + 1}
             attn = _decode_attention(q, k_cache, v_cache, keep, scale)
         else:
@@ -190,9 +261,15 @@ def top_k_stable(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
     return vals[..., :k], idx[..., :k]
 
 
-def moe_ffn(p: "MoE", x: torch.Tensor, m: MoECfg):
+def moe_ffn(p: "MoE", x: torch.Tensor, m: MoECfg, first_expert: int = 0):
     """Routed expert FFN on G groups of T tokens, x (G, T, D) → (G, T, D),
     plus the routing stats (``repro.models.blocks.moe_ffn`` on each group).
+
+    ``p.we_*`` may hold a slice of the experts, ``first_expert`` onwards
+    (expert parallelism): the routing still runs over all E experts, and
+    only the slice's slots are gathered, computed and summed into ``y``; a
+    choice of another expert adds 0. The slices' ``y`` sum to the whole
+    block's.
 
     Each (token, choice) takes its place in its expert's queue of its group
     by a token-major, choice-minor exclusive prefix count; one past the
@@ -231,12 +308,18 @@ def moe_ffn(p: "MoE", x: torch.Tensor, m: MoECfg):
     valid = torch.zeros((n + 1,), dtype=x.dtype, device=x.device).scatter_(
         0, sent, torch.ones((1,), dtype=x.dtype, device=x.device).expand(G * T * K))[:n]
 
-    xe = (x.reshape(G * T, D).index_select(0, token_map) * valid[:, None]).reshape(E, G * C, D)
+    E_l = p.we_gate.shape[0]
+    lo, hi = first_expert * G * C, (first_expert + E_l) * G * C  # the slice's slots
+    if E_l < E:
+        keep = keep & (slot >= lo) & (slot < hi)
+        token_map, valid = token_map[lo:hi], valid[lo:hi]
+
+    xe = (x.reshape(G * T, D).index_select(0, token_map) * valid[:, None]).reshape(E_l, G * C, D)
     he = torch.bmm(xe, p.we_gate.to(x.dtype))
     ue = torch.bmm(xe, p.we_up.to(x.dtype))
-    ye = torch.bmm(silu(he) * ue, p.we_down.to(x.dtype)).reshape(n, D)
+    ye = torch.bmm(silu(he) * ue, p.we_down.to(x.dtype)).reshape(hi - lo, D)
     gate = (gate_vals.reshape(G, T * K) * keep).to(x.dtype)
-    picked = ye.index_select(0, torch.where(keep, slot, 0).reshape(-1)).reshape(G, T * K, D)
+    picked = ye.index_select(0, torch.where(keep, slot - lo, 0).reshape(-1)).reshape(G, T * K, D)
     y = (picked * gate[..., None]).reshape(G, T, K, D).sum(2)
 
     # Stats: each expert's token load (the MoE demand matrix) and the aux loss.
@@ -287,39 +370,73 @@ class MoE(nn.Module):
     def _forward_sharded(self, x):
         """The block on DTensors (the sharded step). DTensor has no sharding
         strategy for the dispatch (the stable sort, the scatters and
-        gathers), so the block runs through ``local_map`` on each rank's
-        rows with its parameters gathered (ZeRO-3 for this block): with one
-        dispatch group a row (S ≥ 4·E) the batch stays sharded over the data
-        axes and the loads and aux loss are partial sums over them; with one
-        global group the tokens are gathered too. The same numbers as
-        ``_moe_forward`` on the full batch, to the float order of the sums."""
+        gathers), so the routed experts run through ``local_map`` on each
+        rank's rows (gathered over the sequence): with one dispatch group a
+        row (S ≥ 4·E) the batch stays sharded over the data axes and the
+        loads and aux loss are partial sums over them; with one global
+        group (decode) the tokens are gathered too.
+
+        Expert parallelism, the reference's rule for the expert weights
+        (E over the model axis): where the model axis divides E, each rank
+        of it holds its E / |model| experts (gathered over the data axes
+        only), routes every token of its rows over all E, and computes and
+        sums only its own experts' slots, so the block's output leaves as a
+        partial sum over the model axis and the residual stream's placement
+        reduces it. The slots never leave their rank: a group's tokens are
+        on every rank of the model axis. The router, the capacities and the
+        loads are the same on every rank of the model axis; so the
+        gradients that reach the router and the tokens are partial sums over
+        it, and each rank passes back 1/|model| of the aux loss's. Where the
+        model axis does not divide E (of the registry's configurations, the
+        reduced ones, E = 8, on a model axis of 16), the experts are
+        gathered over it too and every rank of it computes the whole block,
+        as the reference's ``_fit`` replicates a dim the mesh does not
+        divide. The shared experts run on DTensors, tensor-parallel as
+        the dense MLP. The same numbers as ``_moe_forward`` on the full
+        batch, to the float order of the sums."""
         from torch.distributed.tensor import Partial, Replicate, Shard
 
-        from ..parallel.sharding import batch_axes, mesh_axes
+        from ..parallel.sharding import batch_axes, local_call, mesh_axes, scale_grad
 
         mesh = x.device_mesh
         B, S, _ = x.shape
-        m = self.cfg.moe
+        cfg, m = self.cfg, self.cfg.moe
+        E = m.num_experts
         axes = mesh_axes(mesh)
         baxes = batch_axes(mesh)
         n_b = math.prod(axes[a] for a in baxes)
-        split = S >= 4 * m.num_experts and B % n_b == 0 and n_b > 1
-        rows = tuple(Shard(0) if split and a in baxes else Replicate() for a in axes)
-        summed = tuple(Partial() if split and a in baxes else Replicate() for a in axes)
-        rep = tuple(Replicate() for _ in axes)
-        names = list(self._parameters)
-        cfg, share = self.cfg, (1.0 / n_b if split else 1.0)
+        n_m = axes.get("model", 1)
+        split = S >= 4 * E and B % n_b == 0 and n_b > 1
+        ep = n_m > 1 and E % n_m == 0
+        first = mesh.get_local_rank("model") * (E // n_m) if ep else 0
 
-        def local(x, *ps):
-            y, stats = _moe_forward(_Weights(dict(zip(names, ps))), x, cfg)
-            return y, stats["expert_load"], stats["aux_loss"] * share
+        def place(on_batch, on_model):
+            return tuple(on_batch if a in baxes else on_model if a == "model" else Replicate() for a in axes)
 
-        from ..parallel.sharding import local_call
+        rows, part = Shard(0) if split else Replicate(), Partial() if ep else Replicate()
+        summed = Partial() if split else Replicate()
+        rep = place(Replicate(), Replicate())
+        experts = place(Replicate(), Shard(0) if ep else Replicate())
+        share = 1.0 / n_b if split else 1.0
 
-        y, load, aux = local_call(local, (rows,) + (rep,) * len(names), (rows, summed, summed), x,
-                                  *(self._parameters[n] for n in names),
-                                  grad_placements=(rows,) + (summed,) * len(names))
-        return y, {"expert_load": load, "aux_loss": aux}
+        def local(h, router, *we):
+            Bl = h.shape[0]
+            groups = h if S >= 4 * E else h.reshape(1, Bl * S, -1)
+            w = _Weights(dict(router=router, we_gate=we[0], we_up=we[1], we_down=we[2]))
+            y, stats = moe_ffn(w, groups, m, first)
+            aux = stats["aux_loss"] * share
+            return y.reshape(Bl, S, -1), stats["expert_load"], scale_grad(aux, 1.0 / n_m) if ep else aux
+
+        h = rms_norm(x, self.norm1, cfg.norm_eps)
+        y, load, aux = local_call(
+            local, (place(rows, Replicate()), rep, experts, experts, experts),
+            (place(rows, part), place(summed, Replicate()), place(summed, Replicate())),
+            h, self.router, self.we_gate, self.we_up, self.we_down,
+            grad_placements=(place(rows, part), place(summed, part),
+                             *(place(summed, Shard(0) if ep else Replicate()),) * 3))
+        if m.num_shared:
+            x = _residual(x, dense(silu(dense(h, self.ws_gate)) * dense(h, self.ws_up), self.ws_down))
+        return _residual(x, y), {"expert_load": load, "aux_loss": aux}
 
 
 class _Weights:

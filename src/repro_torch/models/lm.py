@@ -218,11 +218,17 @@ class LM(nn.Module):
         """The activation constraint between blocks (``act_pspec``, the
         reference's ``with_sharding_constraint``): a redistribution of a
         DTensor ``x``; anything else passes."""
-        from ..parallel.sharding import fit_placements, is_dtensor
+        from ..parallel.sharding import is_dtensor
 
         if self.act_pspec is None or not is_dtensor(x):
             return x
-        return x.redistribute(x.device_mesh, fit_placements(self.act_pspec, x.shape, x.device_mesh))
+        return x.redistribute(x.device_mesh, self._constrain_placements(x))
+
+    def _constrain_placements(self, x):
+        """The placements ``_constrain`` gives a DTensor ``x`` (None without ``act_pspec``)."""
+        from ..parallel.sharding import fit_placements
+
+        return None if self.act_pspec is None else fit_placements(self.act_pspec, x.shape, x.device_mesh)
 
     def _block(self, run, x, decode: bool):
         """One scanned block ``run(x) → (x, caches, *stats)``, checkpointed
@@ -343,25 +349,50 @@ class LM(nn.Module):
 
     def _embed(self, tokens):
         """The token embeddings. On a DTensor table (the sharded step) the
-        lookup runs through ``local_map`` on each rank's rows of the batch
-        with the table gathered: DTensor's own strategies for the lookup
-        differ from release to release. The table's gradient is then a
-        partial sum over the batch axes."""
+        lookup runs through ``local_map`` on each rank's rows of the batch:
+        DTensor's own strategies for the lookup differ from release to
+        release. Vocab-parallel, as the reference's rule for the table
+        (vocabulary over the model axis): where the model axis divides V,
+        each rank of it keeps its V / |model| rows of the table (gathered
+        over the data axes only), looks up the ids in its range and gives 0
+        for the rest; the sum over the model axis is the lookup (an
+        all-reduce, or under sequence parallelism a reduce-scatter to the
+        activations' placements). The table's gradient is then sharded like
+        the table and a partial sum over the batch axes. Where the model
+        axis does not divide V the table is gathered over it too, and its
+        range is the whole vocabulary."""
         from ..parallel.sharding import is_dtensor
 
         if not is_dtensor(self.embed):
             return self.embed[tokens]
         from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-        from ..parallel.sharding import head_placements, local_call
+        from ..parallel.sharding import head_placements, local_call, mesh_axes
 
         mesh = self.embed.device_mesh
-        rep = tuple(Replicate() for _ in range(mesh.ndim))
+        V = self.embed.shape[0]
+        n_m = mesh_axes(mesh).get("model", 1)
+        vp = n_m > 1 and V % n_m == 0
+        model = mesh.mesh_dim_names.index("model") if vp else -1
+        lo = mesh.get_local_rank("model") * (V // n_m) if vp else 0
         if not isinstance(tokens, DTensor):
-            tokens = DTensor.from_local(tokens, mesh, rep, run_check=False)
+            tokens = DTensor.from_local(tokens, mesh, tuple(Replicate() for _ in range(mesh.ndim)), run_check=False)
         rows = head_placements(mesh, tokens.shape[0], 1)
-        summed = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in rows)
-        return local_call(lambda e, t: e[t], (rep, rows), rows, self.embed, tokens, grad_placements=(summed, rows))
+
+        def lookup(e, t):
+            t = t - lo
+            mine = (t >= 0) & (t < e.shape[0])
+            return torch.where(mine[..., None], e[torch.where(mine, t, 0)], 0)
+
+        def on_model(p_model, p_other, i):
+            return p_model if i == model else p_other
+
+        table = tuple(on_model(Shard(0), Replicate(), i) for i in range(mesh.ndim))
+        table_grad = tuple(on_model(Shard(0), Partial() if isinstance(p, Shard) else Replicate(), i)
+                           for i, p in enumerate(rows))
+        out = tuple(on_model(Partial(), p, i) for i, p in enumerate(rows))
+        x = local_call(lookup, (table, rows), out, self.embed, tokens, grad_placements=(table_grad, rows))
+        return x.redistribute(mesh, self._constrain_placements(x) or rows)
 
     def _logits(self, x):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)

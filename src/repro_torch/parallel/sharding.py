@@ -209,8 +209,17 @@ def default_act_pspec(mesh) -> Spec:
 
 
 def fit_placements(spec: Spec, shape, mesh) -> tuple:
-    """``placements`` of ``spec`` with the dims its axes do not divide replicated."""
-    return placements(_fit(spec, tuple(shape), mesh_axes(mesh)), mesh)
+    """``placements`` of ``spec`` (entries may be tuples of axes, as the
+    batch's ("pod", "data")) with the dims its axes do not divide
+    replicated: the reference's ``with_sharding_constraint`` of the
+    activations, which shards the batch."""
+    axes = mesh_axes(mesh)
+
+    def fits(dim, ax):
+        names = ax if isinstance(ax, tuple) else (ax,)
+        return ax is not None and all(a in axes for a in names) and dim % _axis_size(axes, ax) == 0
+
+    return placements(tuple(ax if fits(dim, ax) else None for dim, ax in zip(tuple(shape), spec)), mesh)
 
 
 def distribute(t: torch.Tensor, sharding: NamedSharding):
@@ -293,6 +302,11 @@ class _MapGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.fn(g), None
+
+
+def scale_grad(x, c: float):
+    """``x`` as it is, its gradient times ``c``."""
+    return _MapGrad.apply(x, lambda g: g * c)
 
 
 def fit_heads_grad(x, n_heads: int):

@@ -20,7 +20,7 @@ from repro.configs.registry import ARCHS as JAX_ARCHS  # noqa: E402
 from repro.configs.registry import get_shape as jax_get_shape  # noqa: E402
 from repro.models.lm import LM as JaxLM  # noqa: E402
 from repro_torch.analysis.collectives import CollectiveStats, LocalCounter  # noqa: E402
-from repro_torch.analysis.roofline import H100_SXM, analyze, count_params, model_flops  # noqa: E402
+from repro_torch.analysis.roofline import H100_SXM, analyze, count_params, kernel_cost, model_flops  # noqa: E402
 from repro_torch.configs.registry import ARCHS, get_shape  # noqa: E402
 from repro_torch.launch import dryrun, perf  # noqa: E402
 from repro_torch.models.registry import param_specs  # noqa: E402
@@ -188,3 +188,58 @@ def test_with_depth_and_scan_units_equal_reference():
         for n in (1, 2):
             got, want = dryrun.with_depth(ARCHS[arch], n), jax_dryrun.with_depth(JAX_ARCHS[arch], n)
             assert (got.num_layers, got.encoder_layers) == (want.num_layers, want.encoder_layers)
+
+
+def test_attention_forward_is_counted_at_the_kernels_cost():
+    """Under a ``LocalCounter`` a ``flash_attention`` forward counts
+    ``kernel_cost``'s FLOPs and bytes (q, k, v read once, o written once)
+    and none of the plain ``mha_ref`` ops a CPU tensor runs in its place;
+    an attention layer's forward beyond the kernel grows linearly in S (its
+    second difference over S = 16, 32, 48 is 0), so no (S, S) tensor is
+    counted."""
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.models.blocks import Attention
+
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 48, 32), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, 48, 32), dtype=np.float32)) for _ in range(2))
+    counter = LocalCounter()
+    with counter:
+        mha(q, k, v, causal=True)
+    want = kernel_cost("flash_attention", B=2, Hq=4, Hkv=2, Sq=48, Sk=48, D=32, causal=True, window=None, itemsize=4)
+    assert (counter.flops, counter.bytes) == want
+    assert want[0] == 4 * 2 * 4 * 32 * (48 * 49 // 2)
+
+    cfg = ARCHS["granite-3-8b"].reduced()
+    layer = Attention(cfg, torch.Generator().manual_seed(0), with_mlp=False, device="cpu")
+    dh = cfg.resolved_head_dim
+
+    def beyond_the_kernel(S):
+        x = torch.from_numpy(rng.standard_normal((1, S, cfg.d_model), dtype=np.float32))
+        counter = LocalCounter()
+        with torch.no_grad(), counter:
+            layer(x, positions=torch.arange(S)[None])
+        kf, kb = kernel_cost("flash_attention", B=1, Hq=cfg.num_heads, Hkv=cfg.num_kv_heads, Sq=S, Sk=S, D=dh,
+                             causal=True, window=None, itemsize=4)
+        assert counter.flops_by_op["flash_attention"] == kf
+        return counter.flops - kf, counter.bytes - kb
+
+    (f1, b1), (f2, b2), (f3, b3) = (beyond_the_kernel(S) for S in (16, 32, 48))
+    assert b3 - 2 * b2 + b1 == 0 and f3 - 2 * f2 + f1 == 0, (b1, b2, b3, f1, f2, f3)
+
+
+def test_ssd_chunk_is_counted_at_the_kernels_cost():
+    """``ssd_chunk`` on a CPU tensor under a ``LocalCounter``: the kernel's
+    cost once, none of ``ssd_chunk_ref``'s ops."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunk
+
+    rng = np.random.default_rng(1)
+    BH, S, L, N, P = 3, 64, 16, 8, 4
+    xd = torch.from_numpy(rng.standard_normal((BH, S, P), dtype=np.float32))
+    loga = torch.from_numpy(-rng.random((BH, S), dtype=np.float32))
+    B, C = (torch.from_numpy(rng.standard_normal((BH, S, N), dtype=np.float32)) for _ in range(2))
+    counter = LocalCounter()
+    with counter:
+        ssd_chunk(xd, loga, B, C, L)
+    assert (counter.flops, counter.bytes) == kernel_cost("ssd_chunk", BH=BH, S=S, L=L, N=N, P=P, itemsize=4)
+    assert counter.flops_by_op == {"ssd_chunk": counter.flops}

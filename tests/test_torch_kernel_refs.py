@@ -21,7 +21,12 @@ from repro.kernels.auction_fused.ref import fused_auction_ref as jax_fused_ref  
 from repro_torch.core.torchopt.matching import default_max_iters  # noqa: E402
 from repro_torch.kernels.auction_bid import masked_row_top2, masked_row_top2_ref  # noqa: E402
 from repro_torch.kernels.auction_fused import fused_auction, fused_auction_ref  # noqa: E402
-from repro_torch.kernels.auction_fused.ops import cluster_max_n, cluster_smem_bytes, fused_kernel_for  # noqa: E402
+from repro_torch.kernels.auction_fused.ops import (  # noqa: E402
+    cluster_max_n,
+    cluster_smem_bytes,
+    fused_kernel_for,
+    pick_kernel,
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -144,6 +149,15 @@ def test_fused_kernel_choice_by_n(n, cluster):
     fits = cluster_smem_bytes(n, cluster) <= 232448
     assert fits == (n <= _MAX_N[cluster])
     assert fused_kernel_for(n, cluster) == ("cluster" if fits else "block")
+
+
+@pytest.mark.parametrize("B,n,want", [(1, 256, ("cluster", 16)), (4, 512, ("cluster", 16)),
+                                       (4, 893, ("cluster", 16)), (1, 894, ("block", 0)),
+                                       (5, 256, ("block", 0)), (8, 100, ("block", 0))])
+def test_fused_kernel_picked_by_lanes_and_n(B, n, want):
+    """Unless the caller names a kernel, up to four lanes take 16-CTA
+    clusters where W fits them, and the rest the one-block kernel."""
+    assert pick_kernel(B, n) == want
 
 
 def test_fused_wrapper_kernel_choice_checks():

@@ -111,6 +111,18 @@ def test_rounds_kernel_warm_prices_equal_plain(cuda, n, reverse):
         assert torch.equal(c, z)
 
 
+@pytest.mark.parametrize("B,n", [(4, 129), (8, 37), (3, 1000)])
+def test_bid_kernel_equals_plain_with_4_byte_loads(cuda, B, n):
+    """Widths 4 does not divide take the op's 4-byte loads, bit for bit on
+    random and tie-rich weights."""
+    rng = np.random.default_rng(n)
+    for W in (torch.from_numpy(rng.random((B, n, n), dtype=np.float32)).to(cuda),
+              torch.from_numpy(rng.integers(0, 3, (B, n, n)).astype(np.float32)).to(cuda)):
+        p = torch.from_numpy(rng.integers(0, 2, (B, n)).astype(np.float32)).to(cuda)
+        for g, w in zip(masked_row_top2(W, p), masked_row_top2_ref(W, p)):
+            assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("B,n", [(4, 160), (4, 256), (4, 512)])
 def test_bid_kernel_equals_plain_above_128(cuda, B, n):
     """The op at the widths the round loop gives it above n = 128: random
@@ -182,6 +194,63 @@ def test_fused_cluster_kernel_equals_plain(cuda, cluster, n, budget):
     torch.cuda.synchronize()
     assert fused_auction.cluster_launches == before + 1
     for g, w in zip(got, fused_auction_ref(W, p0, eps, max_iters=mi)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B,n,kernel", [(1, 256, "cluster"), (4, 512, "cluster"), (1, 1024, "block"),
+                                        (6, 256, "block")])
+def test_fused_picked_kernel_equals_plain(cuda, B, n, kernel):
+    """With no kernel named, the wrapper's pick (16-CTA clusters for up to
+    four lanes where W fits them, else one block a lane) launches that kernel
+    and equals the plain version bit for bit."""
+    rng = np.random.default_rng(B * n)
+    W = torch.from_numpy(np.stack([_bonus_weights(rng, n, k=16) for _ in range(B)])).to(cuda)
+    eps = _eps_schedule(W, default_num_phases(n)).contiguous()
+    p0 = torch.zeros((B, n), device=cuda)
+    before = fused_auction.cluster_launches
+    got = fused_auction(W, p0, eps, max_iters=default_max_iters(n))
+    torch.cuda.synchronize()
+    assert fused_auction.cluster_launches == before + (kernel == "cluster")
+    for g, w in zip(got, fused_auction_ref(W, p0, eps, max_iters=default_max_iters(n))):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("max_swaps", ["2n", 3])
+@pytest.mark.parametrize("kind", ["random", "ties", "bonus"])
+@pytest.mark.parametrize("n", [7, 129, 256, 1024])
+def test_polish_kernel_equals_plain(cuda, n, kind, max_swaps):
+    """polish_2swap (greedy completion and the 2-swap polish in one launch)
+    against its plain version, bit for bit in perm and converged, from maps
+    with a seventh of the rows unassigned (so the polish swaps), with the
+    matcher's budget (2n swaps) and with 3."""
+    from repro_torch.kernels.auction_fused import polish_2swap, polish_2swap_ref
+
+    rng = np.random.default_rng(n)
+    B = 2
+    if kind == "random":
+        W = rng.random((B, n, n), dtype=np.float32)
+    elif kind == "ties":
+        W = rng.integers(0, 3, (B, n, n)).astype(np.float32)
+    else:
+        W = np.stack([_bonus_weights(rng, n, k=16) for _ in range(B)])
+    r2c, c2r = [], []
+    for _ in range(B):
+        r, c = rng.permutation(n), np.empty(n, dtype=np.int64)
+        c[r] = np.arange(n)
+        drop = rng.choice(n, max(1, n // 7), replace=False)
+        c[r[drop]] = -1
+        r[drop] = -1
+        r2c.append(r)
+        c2r.append(c)
+    W = torch.from_numpy(W).to(cuda)
+    r2c = torch.from_numpy(np.stack(r2c)).to(cuda).int()
+    c2r = torch.from_numpy(np.stack(c2r)).to(cuda).int()
+    budget = 2 * n if max_swaps == "2n" else max_swaps
+    before = polish_2swap.launches
+    got = polish_2swap(W, r2c, c2r, max_swaps=budget)
+    torch.cuda.synchronize()
+    assert polish_2swap.launches == before + 1
+    for g, w in zip(got, polish_2swap_ref(W, r2c, c2r, max_swaps=budget)):
         assert torch.equal(g, w)
 
 

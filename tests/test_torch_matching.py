@@ -152,6 +152,42 @@ def test_decompose_lanes_equal_single_instance_runs():
             assert torch.equal(got[b], want[0]), b
 
 
+def _maps_with_holes(rng, n, holes):
+    """A row -> column map and its inverse with ``holes`` rows unassigned."""
+    r2c = rng.permutation(n)
+    c2r = np.empty(n, dtype=np.int64)
+    c2r[r2c] = np.arange(n)
+    drop = rng.choice(n, holes, replace=False)
+    c2r[r2c[drop]] = -1
+    r2c[drop] = -1
+    return r2c, c2r
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("n,swaps", [(9, "2n"), (33, "2n"), (33, 3)])
+def test_polish_2swap_matches_reference(kind, n, swaps):
+    """The fused matcher's tail (``polish_2swap``'s plain version: greedy
+    completion, then the best-pair 2-swap polish) against the reference's
+    ``_complete_greedy`` and ``_polish_2swap``, lane by lane, exactly."""
+    from repro_torch.kernels.auction_fused import polish_2swap, polish_2swap_ref
+
+    rng = np.random.default_rng(n)
+    B = 2
+    W = (rng.random((B, n, n)) if kind == "random" else rng.integers(0, 3, (B, n, n))).astype(np.float32)
+    maps = [_maps_with_holes(rng, n, n // 4) for _ in range(B)]
+    r2c = torch.from_numpy(np.stack([m[0] for m in maps])).int()
+    c2r = torch.from_numpy(np.stack([m[1] for m in maps])).int()
+    max_swaps = 2 * n if swaps == "2n" else swaps
+    perm, converged = polish_2swap_ref(torch.from_numpy(W), r2c, c2r, max_swaps=max_swaps)
+    for got, want in zip(polish_2swap(torch.from_numpy(W), r2c, c2r, max_swaps=max_swaps), (perm, converged)):
+        assert torch.equal(got, want)
+    assert not bool(converged.any())
+    for b in range(B):
+        start = jm._complete_greedy(jnp.asarray(maps[b][0], jnp.int32), jnp.asarray(maps[b][1], jnp.int32))
+        want = np.asarray(jm._polish_2swap(jnp.asarray(W[b]), start, max_swaps))
+        assert perm[b].tolist() == want.tolist()
+
+
 def test_greedy_completion_when_starved():
     rng = np.random.default_rng(5)
     W = torch.from_numpy(rng.random((2, 24, 24)).astype(np.float32))

@@ -212,6 +212,23 @@ def test_largest_mesh_equals_reference(prefer_model):
     assert largest_mesh(6, prefer_model=2) == (3, 2)
 
 
+@pytest.mark.parametrize("mesh_name", ["4x2", "16x16", "2x16x16"])
+def test_activation_constraint_shards_the_batch(mesh_name):
+    """The constraint between blocks places (B, S, D) as the reference's
+    ``P(("pod", "data"), "model", None)`` does: the batch over the batch
+    axes, the sequence over model; a dim they do not divide (a decode step's
+    S = 1, a batch of 3) is replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = StubMesh(MESHES[mesh_name])
+    mesh.mesh_dim_names, mesh.shape = tuple(MESHES[mesh_name]), tuple(MESHES[mesh_name].values())
+    spec = sharding.default_act_pspec(mesh)
+    got = sharding.fit_placements(spec, (512, 4096, 64), mesh)
+    assert got == tuple(Shard(1) if a == "model" else Shard(0) for a in MESHES[mesh_name])
+    got = sharding.fit_placements(spec, (3, 1, 64), mesh)
+    assert got == tuple(Replicate() for _ in MESHES[mesh_name])
+
+
 def test_default_act_pspec_and_modes():
     mesh = StubMesh(MESHES["2x16x16"])
     assert _norm(sharding.default_act_pspec(mesh)) == _norm(jax_sharding.default_act_pspec(mesh))

@@ -20,9 +20,10 @@
    encoder and cross-attention shapes),
    ``demand_accum`` against a float64
    sum and its plain version within 1e-5 / 2e-5 of each cell's mass (float
-   atomics change the sum's order from run to run). It times kernel, plain
-   version and, where one exists, a single PyTorch call computing the same
-   function.
+   atomics change the sum's order from run to run) on both of its paths,
+   uniform, skewed and one-cell events, int64 indices, events out of range
+   and a view one element in. It times kernel, plain version and, where one
+   exists, a single PyTorch call computing the same function.
 2. Drives the solver's path, ``repro_torch.api.solve_many(...,
    solver="spectra_torch")``, on four shape buckets (gpt n=32, moe n=64,
    benchmark n=100, permutations n=512): one warm-up run of the gpt bucket,
@@ -166,7 +167,11 @@
    zamba2-1.2b × decode_32k on a fake 16 × 16 process group; it must exit 0
    and write a JSON file a cell. Prints the per-chip FLOPs, bytes and wire
    bytes, the collectives by kind, the three terms against the H100 SXM data
-   sheet and the calibration's cross-check: counts, not timings.
+   sheet and the calibration's cross-check: counts, not timings; each
+   cell's FLOPs, bytes, wire and resident bytes beside the counts from before
+   the loss and the query heads were sharded. qwen3-moe's
+   ``flash_attention`` FLOPs a chip must equal ``kernel_cost`` for 2 of its
+   32 query heads (the model axis of 16 splits the query heads under GQA).
 18. Prints one ``{"kernels": [...]}`` line (launches split by path for
    the auction kernels and ``polish_2swap``, the online path with its flow replay, the
    dashboard, the serving phase, the shim and bench/matching among them,
@@ -778,64 +783,80 @@ def phase_zamba2(seed: int) -> dict:
     return launches
 
 
+def accum_events(kind: str, T: int, n: int, gen: torch.Generator):
+    """(src, dst, w) of T events on the card for an (n, n) demand matrix,
+    w ~ U[0, 1): "uniform" (int32 indices; "uniform int64" int64) over the
+    cells, "skewed" (90% of the events on 1% of the cells, chosen at random;
+    the rest uniform), "one cell" (every event on cell (n // 3, 2n // 3)),
+    "out of range" (indices uniform in [-5, n + 5))."""
+    dev = gen.device
+    w = torch.rand((T,), generator=gen, device=dev)
+    if kind == "one cell":
+        return (torch.full((T,), n // 3, dtype=torch.int32, device=dev),
+                torch.full((T,), 2 * n // 3, dtype=torch.int32, device=dev), w)
+    if kind == "skewed":
+        hot = torch.randperm(n * n, generator=gen, device=dev)[:max(1, n * n // 100)]
+        cell = torch.randint(0, n * n, (T,), generator=gen, device=dev)
+        pick = hot[torch.randint(0, hot.numel(), (T,), generator=gen, device=dev)]
+        cell = torch.where(torch.rand((T,), generator=gen, device=dev) < 0.9, pick, cell).to(torch.int32)
+        return cell // n, cell % n, w
+    lo, hi = (-5, n + 5) if kind == "out of range" else (0, n)
+    itype = torch.int64 if kind == "uniform int64" else torch.int32
+    return (*(torch.randint(lo, hi, (T,), generator=gen, device=dev, dtype=itype) for _ in range(2)), w)
+
+
 def phase_demand_accum(rng) -> dict:
     """demand_accum against a float64 sum and its plain version. Float
     atomics sum in an order that changes from run to run, so the kernel must
     lie within 1e-5 of each cell's mass Σ|w| (plus 1e-30) of the float64 sum
     of the same events, and within twice that of the plain version (each of
-    the two lies within 1e-5 of the exact sum)."""
+    the two lies within 1e-5 of the exact sum). The cases cover both paths
+    the launcher picks (private copies in a CTA's shared memory at n ≤ 241,
+    global atomics above), misaligned views, and contention (skewed events,
+    one cell); the timed ones beside their bound."""
     from repro_torch.kernels.demand_accum import demand_accum, demand_accum_ref, in_range
 
-    dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
-
-    def uniform(T, n, lo=0, hi=None):
-        hi = n if hi is None else hi
-        return (torch.randint(lo, hi, (T,), generator=gen, device=dev, dtype=torch.int32),
-                torch.randint(lo, hi, (T,), generator=gen, device=dev, dtype=torch.int32),
-                torch.rand((T,), generator=gen, device=dev))
-
-    cases = [  # name, n, (src, dst, w)
-        ("uniform T=2^23", 64, uniform(1 << 23, 64)),
-        ("uniform T=2^23", 512, uniform(1 << 23, 512)),
-        ("T=1000", 64, uniform(1000, 64)),
-        ("one cell T=2^16", 64, (torch.full((1 << 16,), 21, dtype=torch.int32, device=dev),
-                                 torch.full((1 << 16,), 42, dtype=torch.int32, device=dev),
-                                 torch.rand((1 << 16,), generator=gen, device=dev))),
-        ("out of range T=2^20", 130, uniform(1 << 20, 130, -5, 135)),
-        ("out of range T=2^20", 512, uniform(1 << 20, 512, -5, 517)),
-    ]
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 31)))
+    timed = [("uniform", 1 << 23, 64), ("uniform", 1 << 23, 512), ("uniform", 1 << 23, 300),
+             ("skewed", 1 << 23, 64), ("skewed", 1 << 23, 512), ("one cell", 1 << 16, 64)]
+    checked = [("uniform", 1000, 64), ("uniform int64", 1 << 20, 241), ("uniform", 1 << 20, 242),
+               ("uniform int64", 1 << 20, 1024), ("out of range", 1 << 20, 130), ("out of range", 1 << 20, 512),
+               ("uniform", (1 << 20) + 3, 64)]
     max_err, shapes = 0.0, []
-    for name, n, (src, dst, w) in cases:
+    for kind, T, n in timed + checked:
+        src, dst, w = accum_events(kind, T, n, gen)
+        if T % 4:  # views one element in: the 16-byte loads' scalar head and tail
+            src, dst, w = src[1:], dst[1:], w[1:]
         got = demand_accum(src, dst, w, n=n)
         torch.cuda.synchronize()
         keep = in_range(src, dst, n)
         idx = (src[keep].long(), dst[keep].long())
-        exact = torch.zeros((n, n), dtype=torch.float64, device=dev).index_put_(idx, w[keep].double(), accumulate=True)
-        mass = torch.zeros((n, n), dtype=torch.float64, device=dev).index_put_(idx, w[keep].double().abs(),
-                                                                               accumulate=True)
+        exact = torch.zeros((n, n), dtype=torch.float64, device="cuda").index_put_(idx, w[keep].double(),
+                                                                                   accumulate=True)
+        mass = torch.zeros((n, n), dtype=torch.float64, device="cuda").index_put_(idx, w[keep].double().abs(),
+                                                                                  accumulate=True)
         plain = demand_accum_ref(src, dst, w, n)
         err_exact = float(((got.double() - exact).abs() / (mass + 1e-30)).max())
         err_plain = float(((plain.double() - exact).abs() / (mass + 1e-30)).max())
+        name = f"{kind} T={src.shape[0]} n={n}"
         check(bool(((got.double() - exact).abs() <= 1e-5 * mass + 1e-30).all()),
-              f"demand_accum {name} n={n}: kernel off the float64 sum by {err_exact} of the cell mass")
+              f"demand_accum {name}: kernel off the float64 sum by {err_exact} of the cell mass")
         check(bool(((got.double() - plain.double()).abs() <= 2e-5 * mass + 1e-30).all()),
-              f"demand_accum {name} n={n}: kernel differs from its plain version beyond 2e-5 of the cell mass")
+              f"demand_accum {name}: kernel differs from its plain version beyond 2e-5 of the cell mass")
         max_err = max(max_err, float((got - plain).abs().max()))
-        print(f"demand_accum {name} n={n}: kernel within {err_exact:.3g} of the cell mass of the float64 sum "
+        print(f"demand_accum {name}: kernel within {err_exact:.3g} of the cell mass of the float64 sum "
               f"(plain version {err_plain:.3g}), max |kernel − plain| {float((got - plain).abs().max()):.3g}")
-        if name.startswith("uniform"):
-            T = src.shape[0]
+        if (kind, T, n) in timed:
             ms = cuda_ms(lambda: demand_accum(src, dst, w, n=n), 20)
             plain_ms = cuda_ms(lambda: demand_accum_ref(src, dst, w, n), 5, warmup=1)
             flat = (src[keep].long() * n + dst[keep].long()).contiguous()
             wk = w[keep].contiguous()
             lib_ms = cuda_ms(lambda: torch.bincount(flat, weights=wk, minlength=n * n), 20)
             b_ms, b_by = bound(12.0 * T + 4.0 * n * n, float(T))
-            shapes.append(dict(shape=[T, n], ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                               bound_by=b_by))
-            print(f"demand_accum T={T} n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bincount "
-                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            shapes.append(dict(case=kind, shape=[T, n], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=b_ms, bound_by=b_by))
+            print(f"demand_accum {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bincount "
+                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f}% of its bound")
     main = dict(shapes[0], max_abs_err=max_err, shapes=shapes)
     return main
 
@@ -2233,6 +2254,10 @@ def phase_serving(seed: int, cpu_path: str) -> dict:
 
 GPT_STEPS, GPT_B, GPT_S, GPT_OCS_EVERY = 300, 8, 256, 20
 DRYRUN_CELLS = (("qwen3-moe-30b-a3b", "train_4k"), ("zamba2-1.2b", "decode_32k"))
+# The same cells' counts a chip before the loss and the query heads were
+# sharded (PERF.md §6): FLOPs, bytes, wire bytes, resident bytes.
+DRYRUN_BEFORE = {"qwen3-moe-30b-a3b__train_4k": dict(flops=1.050e15, bytes=8.794e13, wire=3.404e11, resident=42.15e9),
+                 "zamba2-1.2b__decode_32k": dict(flops=2.404e9, bytes=7.805e9, wire=5.139e9, resident=1.134e9)}
 
 
 def auction_counters() -> dict:
@@ -2509,9 +2534,29 @@ def phase_dryrun(child) -> dict:
               f"training, the attention backward's plain recompute; flash_attention and ssd_chunk at the kernels' "
               f"cost); "
               f"calibration base + (units − 1)·per-unit vs traced, relative {cal.get('rel_diff')}")
+        before = DRYRUN_BEFORE[f"{arch}__{shape}"]
+        print(f"dry run {arch} × {shape}, a chip, before the loss and heads were sharded → now: FLOPs {before['flops']:.4g} → "
+              f"{r['flops_per_chip']:.4g}, bytes {before['bytes']:.4g} → {r['bytes_per_chip']:.4g}, wire "
+              f"{before['wire']:.4g} → {r['wire_bytes_per_chip']:.4g}, resident {before['resident'] / 1e9:.4g} → "
+              f"{art['bytes_per_device_est'] / 1e9:.4g} GB")
+        if arch == "qwen3-moe-30b-a3b":
+            # Each rank of the 16-wide model axis runs 2 of the 32 query heads (one KV head of 4)
+            # on its 16 rows: flash counted at kernel_cost, a forward and remat's forward a layer.
+            from repro_torch.analysis.roofline import kernel_cost
+            from repro_torch.configs import get_arch, get_shape
+
+            cfg, sh = get_arch(arch), get_shape(shape)
+            one, _ = kernel_cost("flash_attention", B=sh.global_batch // 16, Hq=cfg.num_heads // 16, Hkv=1,
+                                 Sq=sh.seq_len, Sk=sh.seq_len, D=cfg.resolved_head_dim, causal=True, window=None,
+                                 itemsize=2)
+            got = art["flops_by_op"].get("flash_attention")
+            check(got == 2 * cfg.num_layers * one,
+                  f"dry run {arch}: flash_attention {got} FLOPs a chip, not {2 * cfg.num_layers} calls of 2 query "
+                  f"heads ({2 * cfg.num_layers * one})")
         out[f"{arch}__{shape}"] = dict(trace_s=art["trace_s"], roofline=r, calibration=cal,
                                        bytes_per_device_est=art["bytes_per_device_est"],
-                                       resident_bytes=art["resident_bytes"], flops_by_op=art["flops_by_op"])
+                                       resident_bytes=art["resident_bytes"], flops_by_op=art["flops_by_op"],
+                                       before=before)
     took = [line.split()[1] for line in text.splitlines() if line.startswith("DRYRUN_SECONDS")]
     print(f"dry-run child: {took[0] if took else '?'} s of its own, beside the card's phases (the card's phases "
           f"waited {waited:.1f} s for it at the end)")

@@ -14,7 +14,11 @@ as the reference's ``custom_vjp`` does. Unlike the reference wrapper it does
 not pad the head dim to 128: the kernel takes D in {32, 64, 128} as it is.
 On DTensors (the sharded step, ``parallel/steps.py``) it runs on each
 rank's shard through ``local_map``: batch over the data axes and heads over
-the model axis where they divide, the rest gathered first.
+the model axis where they divide, the rest gathered first. Under GQA the
+query heads are placed by their own count (``parallel.sharding.
+gqa_placements``): where the model axis divides Hq but not Hkv, each rank
+runs its Hq / |model| query heads against the KV heads they read, k and v
+replicated over the axis and their gradients partial sums over it.
 """
 
 from __future__ import annotations
@@ -123,9 +127,15 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = Tru
     """Grouped-query attention. q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D)."""
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
-    from ...parallel.sharding import head_placements, is_dtensor, local_call
+    from ...parallel.sharding import gqa_placements, is_dtensor, local_call
 
     if is_dtensor(q):
-        pl = head_placements(q.device_mesh, q.shape[0], k.shape[1])
-        return local_call(lambda q, k, v: _MHA.apply(q, k, v, causal, window, scale), (pl, pl, pl), pl, q, k, v)
+        pl_q, pl_kv, grad_kv, kv = gqa_placements(q.device_mesh, q.shape[0], q.shape[1], k.shape[1])
+
+        def local(q, k, v):
+            if kv is not None:  # this rank's query heads read KV heads [lo, hi) only
+                k, v = k[:, kv[0]:kv[1]], v[:, kv[0]:kv[1]]
+            return _MHA.apply(q, k, v, causal, window, scale)
+
+        return local_call(local, (pl_q, pl_kv, pl_kv), pl_q, q, k, v, grad_placements=(pl_q, grad_kv, grad_kv))
     return _MHA.apply(q, k, v, causal, window, scale)

@@ -49,6 +49,87 @@ from .layers import dense, rms_norm, winit, zinit
 PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """−log softmax(logits)[target] at each position: logits (..., V)
+    float32, targets (...) int64.
+
+    A DTensor ``logits`` sharded over the vocabulary (its last dim, on mesh
+    dims of more than one rank) stays so, as the reference's logits do under
+    GSPMD: each rank works on its own range of the vocabulary through
+    ``local_map`` (``_VocabParallelNLL``), with three all-reduces of one
+    value a position over the axes that shard it (the max, the sum of
+    exp(logit − max), the target's logit from the rank that owns it). Any
+    other input runs ``log_softmax`` and a gather."""
+    from ..parallel.sharding import is_dtensor
+
+    if is_dtensor(logits):
+        from torch.distributed.tensor import Shard
+
+        last = logits.ndim - 1
+        dims = [i for i, p in enumerate(logits.placements)
+                if isinstance(p, Shard) and p.dim == last and logits.device_mesh.size(i) > 1]
+        if dims:
+            return _vocab_parallel_nll(logits, targets, dims)
+    lp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(lp, -1, targets[..., None])[..., 0]
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """One rank's part of the NLL over its vocabulary range [lo, lo + V_local):
+    z (..., V_local) its logits, t (...) the targets, ``groups`` the mesh dims
+    that shard the vocabulary. The backward is softmax − onehot on the
+    rank's own columns, times the upstream gradient: no collective."""
+
+    @staticmethod
+    def forward(ctx, z, t, lo: int, groups: list):
+        import torch.distributed._functional_collectives as funcol
+
+        def all_reduce(x, op):
+            for g in groups:
+                x = funcol.all_reduce(x, op, g)
+            return x
+
+        m = all_reduce(z.amax(dim=-1), "max")
+        total = all_reduce(torch.exp(z - m[..., None]).sum(dim=-1), "sum")
+        local = t - lo
+        mine = (local >= 0) & (local < z.shape[-1])
+        local = torch.where(mine, local, 0)
+        zt = all_reduce(torch.where(mine, torch.gather(z, -1, local[..., None])[..., 0], 0.0), "sum")
+        lse = torch.log(total) + m
+        ctx.save_for_backward(z, lse, local, mine)
+        return lse - zt
+
+    @staticmethod
+    def backward(ctx, g):
+        z, lse, local, mine = ctx.saved_tensors
+        grad = torch.exp(z - lse[..., None])
+        grad.scatter_add_(-1, local[..., None], -mine.to(grad.dtype)[..., None])
+        return grad * g[..., None], None, None, None
+
+
+def _vocab_parallel_nll(logits, targets, dims: list):
+    """``token_nll`` of ``logits`` sharded over the vocabulary on mesh dims
+    ``dims``: the rows keep the logits' other placements, the result is
+    replicated over ``dims``, and the logits' gradient keeps their
+    placements."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from ..parallel.sharding import local_call
+
+    mesh = logits.device_mesh
+    z_pl = tuple(p if isinstance(p, Shard) else Replicate() for p in logits.placements)
+    rows = tuple(Replicate() if i in dims else p for i, p in enumerate(z_pl))
+    lo, size = 0, logits.shape[-1]  # this rank's first column: DTensor's chunks, the first mesh dim outermost
+    for i in dims:
+        chunk = -(-size // mesh.size(i))
+        lo += mesh.get_local_rank(i) * chunk
+        size = max(0, min(chunk, size - mesh.get_local_rank(i) * chunk))
+    groups = [(mesh, i) for i in dims]
+    if not isinstance(targets, DTensor):
+        targets = DTensor.from_local(targets, mesh, tuple(Replicate() for _ in range(mesh.ndim)), run_check=False)
+    return local_call(lambda z, t: _VocabParallelNLL.apply(z, t, lo, groups), (z_pl, rows), rows, logits, targets)
+
+
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
@@ -194,11 +275,11 @@ class LM(nn.Module):
     def loss(self, batch: dict):
         """Next-token NLL of ``batch["tokens"]`` (masked by ``loss_mask`` when
         given), plus the MoE aux loss → (loss, metrics) with metrics ``ce``
-        and, for the moe family, ``expert_load``."""
+        and, for the moe family, ``expert_load``. Logits sharded over the
+        vocabulary stay so (``token_nll``)."""
         out = self.apply(batch)
         tokens = batch["tokens"].to(self.device).long()
-        lp = torch.log_softmax(out["logits"][:, :-1], dim=-1)
-        nll = -torch.gather(lp, -1, tokens[:, 1:, None])[..., 0]
+        nll = token_nll(out["logits"][:, :-1], tokens[:, 1:])
         mask = batch.get("loss_mask")
         if mask is not None:
             mask = mask.to(device=self.device, dtype=nll.dtype)[:, 1:]
@@ -395,9 +476,22 @@ class LM(nn.Module):
         return x.redistribute(mesh, self._constrain_placements(x) or rows)
 
     def _logits(self, x):
+        """The float32 logits. On DTensors their rows go over the batch axes
+        and their vocabulary stays as the product sharded it: a head whose
+        d_model is sharded (the tied table's) leaves partial sums, which are
+        reduce-scattered over the batch, as the activations are."""
+        from ..parallel.sharding import head_placements, is_dtensor
+
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return dense(x, head).float()
+        z = dense(x, head).float()
+        if not is_dtensor(z):
+            return z
+        from torch.distributed.tensor import Shard
+
+        vocab = Shard(z.ndim - 1)
+        rows = head_placements(z.device_mesh, z.shape[0], 1)
+        return z.redistribute(z.device_mesh, tuple(p if p == vocab else r for p, r in zip(z.placements, rows)))
 
     def apply(self, batch: dict) -> dict:
         """Full-sequence forward: {"tokens": (B, S) int, ...} → {"logits": (B, S, V)

@@ -272,6 +272,32 @@ def head_placements(mesh, batch: int, heads: int, head_dim: int = 1) -> tuple:
                  for a in axes)
 
 
+def gqa_placements(mesh, batch: int, hq: int, hkv: int):
+    """Placements of a GQA kernel's q (B, Hq, ...) and k/v (B, Hkv, ...) →
+    (q's, k's and v's, their gradients', this rank's KV heads (lo, hi) or
+    None). The batch goes over the data axes and the heads over the model
+    axis as ``head_placements`` puts them. Where the model axis divides Hq
+    but not Hkv, q stays sharded (Hq / |model| query heads a rank) and k, v
+    come in replicated over the axis: a rank's query heads fill whole KV
+    groups or lie inside one (Hq / |model| and the group size Hq / Hkv
+    divide one another), so it needs only KV heads [lo, hi), and their
+    gradients are partial sums over the axis. Where the model axis divides
+    neither head count (qwen2-vl's 12:2 or whisper's 6:6 on a 16-wide axis),
+    or the two quotients do not divide one another, q is gathered with k
+    and v."""
+    from torch.distributed.tensor import Partial
+
+    pl_q, pl_kv = head_placements(mesh, batch, hq), head_placements(mesh, batch, hkv)
+    if pl_q == pl_kv:
+        return pl_q, pl_kv, pl_kv, None
+    r, group = hq // mesh_axes(mesh)[_TP], hq // hkv
+    if r % group and group % r:
+        return pl_kv, pl_kv, pl_kv, None
+    j = mesh.get_local_rank(_TP)
+    grad = tuple(Partial() if a == _TP else p for a, p in zip(mesh_axes(mesh), pl_kv))
+    return pl_q, pl_kv, grad, (j * r // group, ((j + 1) * r - 1) // group + 1)
+
+
 def fit_heads(x, n_heads: int, dim: int = -1):
     """``x`` with the shards of dim ``dim`` (by default the last, H·dh) that
     would split one of its ``n_heads`` outer groups gathered: the rules

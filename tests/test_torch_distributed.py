@@ -7,6 +7,11 @@ reference itself fails; the port is held to its own single-device step
     train step equals the single-device step;
   * the token embedding of that step is vocab-parallel (granite ties its
     head to the table): a rank gathers its half of the vocabulary only;
+  * so is its loss: the NLL over the logits sharded over the vocabulary
+    moves one value a row, never a (rows, V) tensor;
+  * its attention splits the query heads over the model axis under GQA
+    (4 query heads, 1 KV head): each rank's attention FLOPs are 1/|model|
+    of the block's over its rows, and its KV gradients partial sums;
   * deepseek-moe-16b ``reduced()`` on 2 × 4 (expert parallel over the model
     axis): the step's traced collectives include all-to-all, all-gather or
     all-reduce; the step equals the single-device one; each rank runs E / 4
@@ -99,6 +104,65 @@ def _worker(rank: int, port: int, out_dir: str) -> None:
     out["embed_gathers"] = [dict(counter.collectives.ops).get("all-gather", 0),
                             counter.collectives.operand_bytes.get("all-gather", 0)]
     out["embed_shape"] = [cfg.vocab_size, cfg.d_model, cfg.tie_embeddings]
+
+    # 1a. The loss over the vocab-sharded logits, the logits already computed.
+    from repro_torch.models.lm import token_nll
+
+    with torch.no_grad(), implicit_replication(), smodel.bound(ps):
+        logits = smodel.apply(bs)["logits"][:, :-1]
+    targets = bs["tokens"].long()[:, 1:]
+    counter = LocalCounter()
+    with torch.no_grad(), implicit_replication(), counter:
+        nll = token_nll(logits, targets)
+    with torch.no_grad(), model.bound(params):
+        nll1 = token_nll(model.apply(batch)["logits"][:, :-1], batch["tokens"].long()[:, 1:])
+    out["loss_nll"] = {"ops": dict(counter.collectives.ops), "bytes": dict(counter.collectives.operand_bytes),
+                       "logits_local": list(logits.to_local().shape),
+                       "logits_placements": [[type(p).__name__, getattr(p, "dim", None)] for p in logits.placements],
+                       "diff": float((nll.full_tensor() - nll1).abs().max() / nll1.abs().max())}
+
+    # 1b. One attention block, forward and backward, on the 4 × 2 mesh against
+    # the whole block: each rank's flash FLOPs and plain-recompute FLOPs, and
+    # the gradients of k and v its backward computes (partial sums over the
+    # model axis, its two query heads sharing granite's one KV head).
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    import repro_torch.kernels.flash_attention.ops as fops
+
+    kv_grads = []
+    backward = fops._MHA.backward
+
+    def recorded_backward(ctx, g):
+        grads = backward(ctx, g)
+        kv_grads.append([t.detach().clone() for t in grads[1:3]])
+        return grads
+
+    fops._MHA.backward = staticmethod(recorded_backward)
+    xa = torch.from_numpy(np.random.default_rng(2).standard_normal((8, 32, cfg.d_model), dtype=np.float32))
+    pos = torch.arange(32)[None].expand(8, 32)
+    whole, mine = LocalCounter(), LocalCounter()
+    with model.bound(params), whole:
+        x1 = xa.clone().requires_grad_()
+        model.periods[0][0](x1, positions=pos)[0].sum().backward()
+    xd = distribute_tensor(xa, mesh8, [Shard(0), Shard(1)]).requires_grad_()
+    with implicit_replication(), smodel.bound(ps), mine:
+        smodel.periods[0][0](xd, positions=pos)[0].sum().backward()
+    fops._MHA.backward = backward
+    (k1, v1), (k2, v2) = kv_grads
+    rows = slice(mesh8.get_local_rank("data") * 2, mesh8.get_local_rank("data") * 2 + 2)
+    diffs = []
+    for part, want in ((k2, k1[rows]), (v2, v1[rows])):
+        summed = part.clone()
+        dist.all_reduce(summed, group=mesh8.get_group("model"))
+        scale = want.abs().max()
+        diffs += [float((summed - want).abs().max() / scale), float((part - want).abs().max() / scale)]
+    worst = torch.tensor([diffs[0], diffs[2], -diffs[1], -diffs[3]])
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)  # the worst summed, the closest single part over every rank
+    out["attn_block"] = {"flash": [whole.flops_by_op["flash_attention"], mine.flops_by_op["flash_attention"]],
+                         "bmm": [whole.flops_by_op["bmm"], mine.flops_by_op["bmm"]],
+                         "kv_grad_local": list(k2.shape), "kv_grad_summed": [float(worst[0]), float(worst[1])],
+                         "kv_grad_part_alone": [-float(worst[2]), -float(worst[3])],
+                         "x_grad_diff": float((xd.grad.full_tensor() - x1.grad).abs().max() / x1.grad.abs().max())}
 
     # 1b. Decode over a sequence-sharded cache (one KV head, model axis 2).
     import repro_torch.models.blocks as blocks
@@ -246,6 +310,36 @@ def test_moe_step_runs_a_quarter_of_the_experts_on_each_rank(result):
     whole, mine = result["moe_block"]["bmm"]
     assert whole > 0 and mine * 4 == whole // 2, result["moe_block"]
     assert result["moe_block"]["diff"] <= GRAD_RTOL, result["moe_block"]
+
+
+def test_loss_is_vocab_parallel(result):
+    """The NLL over logits sharded over the vocabulary (granite's 512 over
+    the model axis of 2): three all-reduces of one float32 a row (the max,
+    the sum of exp, the target's logit) and nothing else, so no collective
+    moves a (rows, V) tensor; the result equals one device's."""
+    r = result["loss_nll"]
+    assert r["logits_placements"] == [["Shard", 0], ["Shard", 2]], r
+    b, s, v = r["logits_local"]
+    assert v == result["embed_shape"][0] // 2, r
+    assert r["ops"] == {"all-reduce": 3} and r["bytes"] == {"all-reduce": 3 * b * s * 4}, r
+    assert r["diff"] <= GRAD_RTOL, r
+
+
+def test_attention_heads_are_split_over_the_model_axis(result):
+    """granite ``reduced()``'s 4 query heads over 1 KV head on 4 × 2: each
+    rank runs its 2 query heads on its 2 rows, so its flash forward FLOPs
+    (at ``kernel_cost``) and its backward's plain recompute (``bmm``) are an
+    eighth of the whole block's (a quarter were the heads gathered); the
+    KV head's gradient a rank computes is a partial sum: alone it is not the
+    gradient, summed over the model axis it is one device's."""
+    a = result["attn_block"]
+    (wf, mf), (wb, mb) = a["flash"], a["bmm"]
+    assert wf > 0 and mf * 8 == wf, a
+    assert wb > 0 and mb * 8 == wb, a
+    assert a["kv_grad_local"][:2] == [2, 1], a
+    assert max(a["kv_grad_summed"]) <= GRAD_RTOL, a
+    assert min(a["kv_grad_part_alone"]) > 1e-2, a
+    assert a["x_grad_diff"] <= GRAD_RTOL, a
 
 
 def test_embedding_is_vocab_parallel(result):

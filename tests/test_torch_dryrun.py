@@ -243,3 +243,25 @@ def test_ssd_chunk_is_counted_at_the_kernels_cost():
         ssd_chunk(xd, loga, B, C, L)
     assert (counter.flops, counter.bytes) == kernel_cost("ssd_chunk", BH=BH, S=S, L=L, N=N, P=P, itemsize=4)
     assert counter.flops_by_op == {"ssd_chunk": counter.flops}
+
+
+def test_query_heads_split_where_the_model_axis_divides_hq_only():
+    """granite ``reduced()`` (4 query heads over 1 KV head) traced on a fake
+    4 × 2 (data × model) group: the model axis divides Hq but not Hkv, so
+    each rank's ``flash_attention`` runs Hq / |model| = 2 query heads on its
+    B / 4 = 2 rows, counted at ``kernel_cost`` once a layer (no remat);
+    with the heads gathered it would run all 4."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel.steps import trace_cell
+
+    cfg = ARCHS["granite-3-8b"].reduced()
+    assert (cfg.num_heads, cfg.num_kv_heads) == (4, 1)
+    with dryrun.fake_process_group(8):
+        record, _ = trace_cell(cfg, ShapeCfg("t", 64, 8, "train"), make_debug_mesh(8, model=2), remat=False)
+    assert not dist.is_initialized()
+    want, _ = kernel_cost("flash_attention", B=2, Hq=2, Hkv=1, Sq=64, Sk=64, D=cfg.resolved_head_dim, causal=True,
+                          window=None, itemsize=4)
+    assert record["flops_by_op"]["flash_attention"] == cfg.num_layers * want

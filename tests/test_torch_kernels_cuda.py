@@ -411,6 +411,51 @@ def test_demand_accum_kernel_equals_plain(cuda, T, n, kind, itype):
     assert bool(((got.double() - plain.double()).abs() <= 2e-5 * mass + 1e-30).all())
 
 
+def _views(src, dst, w, view):
+    """``aligned``: as made; ``one in``: all three one element in (their
+    16-byte groups start at event 3); ``w one in``: only w one in (the
+    arrays' groups do not line up, so every event is loaded alone)."""
+    if view == "one in":
+        return src[1:], dst[1:], w[1:]
+    if view == "w one in":
+        return src[:-1], dst[:-1], w[1:]
+    return src, dst, w
+
+
+# n on each side of the launcher's edge (private copies in a CTA's shared
+# memory up to n = 241, global atomics above) and well above it.
+@pytest.mark.parametrize("n", [1, 64, 241, 242, 300, 512, 1024])
+@pytest.mark.parametrize("itype", [torch.int32, torch.int64])
+def test_demand_accum_every_path_equals_plain(cuda, n, itype):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    T = (1 << 18) + 3  # not a multiple of 4
+    src, dst = (torch.randint(-2, n + 2, (T,), generator=gen, device=cuda, dtype=itype) for _ in range(2))
+    w = torch.rand((T,), generator=gen, device=cuda) - 0.25
+    for view in ("aligned", "one in", "w one in"):
+        s, d, x = _views(src, dst, w, view)
+        got = demand_accum(s, d, x, n=n)
+        torch.cuda.synchronize()
+        exact, mass = _exact(s, d, x, n)
+        assert bool(((got.double() - exact).abs() <= 1e-5 * mass + 1e-30).all()), view
+        plain = demand_accum_ref(s, d, x, n)
+        assert bool(((got.double() - plain.double()).abs() <= 2e-5 * mass + 1e-30).all()), view
+
+
+@pytest.mark.parametrize("n,kind", [(64, "one cell"), (512, "one cell"), (64, "skewed"), (300, "skewed"),
+                                    (2000, "skewed")])
+def test_demand_accum_contention_equals_plain(cuda, n, kind):
+    """Many events on few cells: every event on one cell, or 90% of them on
+    1% of the cells."""
+    from chip_smoke import accum_events
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    src, dst, w = accum_events(kind, 1 << 20, n, gen)
+    got = demand_accum(src, dst, w, n=n)
+    exact, mass = _exact(src, dst, w, n)
+    assert bool(((got.double() - exact).abs() <= 1e-5 * mass + 1e-30).all())
+    assert bool(((got.double() - demand_accum_ref(src, dst, w, n).double()).abs() <= 2e-5 * mass + 1e-30).all())
+
+
 def test_demand_accum_kernel_low_precision_weights(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
     src, dst = (torch.randint(0, 64, (4096,), generator=gen, device=cuda) for _ in range(2))

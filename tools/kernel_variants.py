@@ -1,6 +1,6 @@
 """Time design variants of the port's CUDA kernels on one GPU.
 
-    python3 tools/kernel_variants.py [flash|bid|auction|fused|ssd ...] [--rounds 2] [--baseline DIR]
+    python3 tools/kernel_variants.py [flash|bid|auction|fused|ssd|accum ...] [--rounds 2] [--baseline DIR]
 
 Each variant is the kernel source with a few text substitutions (fewer
 warpgroups, no ping-pong, another ring depth or block size, ...) and the
@@ -42,6 +42,19 @@ registers, shared memory and spills from ``nvcc -Xptxas -v``:
   with two chunks a block (both chunks' loads issued before the first
   chunk's products), and the float32 CUDA-core kernel launched on the bf16
   inputs, which served them before the tensor-core kernel.
+- ``accum``: ``demand_accum`` on ``chip_smoke.accum_events``' cases (T = 2²³
+  uniform at n = 64, 300 and 512, int64 at 64, 90% of the events on 1% of
+  the cells at 64 and 512, and every event on one cell, T = 2¹⁶, at 64), ms
+  a call as ``chip_smoke.py`` times it (the wrapper's zeroed output
+  included), each held to a float64 sum within 1e-5 of each cell's mass.
+  Each variant builds ``demand_accum.cu`` alone (or
+  ``tools/demand_accum_clusters.cu``, designs that do not ship: copies
+  summed over clusters, rows split over clusters, warp-aggregated adds) and
+  calls its launcher through ``ctypes``. With ``--baseline DIR`` it also
+  times that tree's kernel (the first port's design) and its split: the event pass
+  without the flush, the flush alone (every cell of every copy 1), and the
+  global path's loads without their atomics; the shipped design's split
+  likewise (the variants named "alone" are not checked).
 
 It needs a CUDA device and ``nvcc``; it prints the card's name and power
 limit first.
@@ -113,7 +126,53 @@ VARIANTS = {
 }
 BASELINE = "baseline tree"  # the variant built from --baseline
 SOURCE = {"flash": "flash_attention.cu", "bid": "auction_bid.cu", "auction": "auction_rounds.cu", "fused": "auction_fused.cu",
-          "ssd": "ssd_chunk.cu"}
+          "ssd": "ssd_chunk.cu", "accum": "demand_accum.cu"}
+
+# demand_accum: variant name -> (the source it starts from, substitutions).
+# "baseline" is --baseline's kernel (the first port's), "current" this tree's, and
+# "clusters" tools/demand_accum_clusters.cu (the designs that do not ship).
+ACCUM_SOURCES = {"current": backend.CSRC_DIR / SOURCE["accum"],
+                 "clusters": ROOT / "tools" / "demand_accum_clusters.cu"}
+_EVENTS = "  for_each_event(src, dst, w, T, n, head, groups, [&](int c, float v) { atomicAdd(acc + c, v); });"
+_ZERO = "smem[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);\n  __syncthreads();"
+_FLUSH = "  __syncthreads();\n  // The copies' sum"
+
+
+def _knob(name: str, old, new) -> tuple:
+    """A substitution of one of the kernel's constexpr knobs."""
+    kind = "bool" if isinstance(old, bool) else "int"
+    text = {True: "true", False: "false"}
+    old, new = (text[v] if kind == "bool" else v for v in (old, new))
+    return (f"constexpr {kind} {name} = {old};", f"constexpr {kind} {name} = {new};")
+
+
+_ROWS_ON = _knob("kMaxRowCluster", 0, 16)
+ACCUM_VARIANTS = {
+    "baseline as built": ("baseline", []),
+    "baseline: event pass alone (no flush)": ("baseline", [("    if (v != 0.0f) atomicAdd(&out[i], v);",
+                                                         "    if (v < 0.0f) atomicAdd(&out[i], v);")]),
+    "baseline: flush alone (no events)": ("baseline", [("if (cell(src, dst, t, n, &c)) atomicAdd(&acc[c], w[t]);", ""),
+                                                     ("acc[i] = 0.0f;", "acc[i] = 1.0f;")]),
+    "baseline: global path's loads alone (no atomics)": (
+        "baseline", [("if (cell(src, dst, t, n, &c)) atomicAdd(&out[c], w[t]);",
+                      "if (cell(src, dst, t, n, &c) && w[t] < 0.0f) out[c] = w[t];")]),
+    "as built": ("current", []),
+    "event pass alone (no flush)": ("current", [(_FLUSH, "  __syncthreads();\n  if (acc[0] < 0.0f) return;\n"
+                                                         "  // The copies' sum")]),
+    "flush alone (no events)": ("current", [(_EVENTS, ""), (_ZERO, _ZERO.replace("0.0f", "1.0f"))]),
+    "four copies a CTA": ("current", [_knob("kCopies", 8, 4)]),
+    "two copies a CTA": ("current", [_knob("kCopies", 8, 2)]),
+    "one copy a CTA": ("current", [_knob("kCopies", 8, 1)]),
+    "512 threads a CTA": ("current", [_knob("kThreads", 1024, 512)]),
+    "one 16-byte group a thread in flight": ("current", [_knob("kUnroll", 2, 1)]),
+    "4-byte loads": ("current", [("    groups = (T - h) / 4;", "    groups = 0;")]),
+    "two copies, summed by clusters of 2": ("clusters", [_knob("kCopyCluster", 1, 2)]),
+    "two copies, summed by clusters of 8": ("clusters", [_knob("kCopyCluster", 1, 8)]),
+    "two copies, warp-aggregated adds": ("clusters", [_knob("kAggregate", False, True)]),
+    "rows split over clusters above 241, remote atomicAdd": ("clusters", [_ROWS_ON]),
+    "rows split over clusters above 241, remote red.shared::cluster": ("clusters", [_ROWS_ON, _knob(
+        "kRemoteRed", False, True)]),
+}
 
 
 def event_ms(fn, reps: int) -> float:
@@ -391,15 +450,85 @@ def ssd_case():
     return run
 
 
+def accum_variants(rounds: int, baseline: Path | None) -> None:
+    """The ``accum`` variants: each ``demand_accum.cu`` built alone (all
+    variants' ``nvcc`` at once) and called through ``ctypes``."""
+    from chip_smoke import accum_events
+    from repro_torch.kernels.demand_accum import in_range
+
+    variants = {k: v for k, v in ACCUM_VARIANTS.items() if v[0] != "baseline" or baseline is not None}
+    libs, procs = {}, []
+    for i, (name, (base, subs)) in enumerate(variants.items()):
+        d = VARIANTS_DIR / f"accum{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        text = (baseline / SOURCE["accum"] if base == "baseline" else ACCUM_SOURCES[base]).read_text()
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"substitution not found in {name!r}: {old!r}")
+            text = text.replace(old, new)
+        (d / SOURCE["accum"]).write_text(text)
+        libs[name] = d / "libaccum.so"
+        cmd = [backend._nvcc(), *backend.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", str(libs[name]),
+               str(d / SOURCE["accum"])]
+        procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    for name, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"accum [{name}]: nvcc failed\n{err}")
+        regs = "; ".join(f"{kernel_name(m.group(1))}: {m.group(3)} registers, spills {m.group(2)}" for m in re.finditer(
+            r"Compiling entry function '(\S+)'.*?(\d+ bytes spill stores, \d+ bytes spill loads).*?Used (\d+) registers",
+            err, re.S))
+        print(f"accum [{name}] ptxas: {regs}", flush=True)
+    fns = {}
+    for name, path in libs.items():
+        fn = ctypes.CDLL(str(path)).demand_accum_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fns[name] = fn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for kind, T, n in (("uniform", 1 << 23, 64), ("uniform", 1 << 23, 512), ("uniform", 1 << 23, 300),
+                       ("uniform int64", 1 << 23, 64), ("skewed", 1 << 23, 64), ("skewed", 1 << 23, 512),
+                       ("one cell", 1 << 16, 64)):
+        src, dst, w = accum_events(kind, T, n, gen)
+        keep = in_range(src, dst, n)
+        idx = (src[keep].long(), dst[keep].long())
+        exact = torch.zeros((n, n), dtype=torch.float64, device="cuda").index_put_(idx, w[keep].double(),
+                                                                                   accumulate=True)
+        mass = torch.zeros((n, n), dtype=torch.float64, device="cuda").index_put_(idx, w[keep].double().abs(),
+                                                                                  accumulate=True)
+        cases.append((f"{kind} T={T} n={n}", src, dst, w, n, exact, mass))
+
+    def call(fn, src, dst, w, n):
+        out = torch.zeros((n, n), dtype=torch.float32, device="cuda")
+        err = fn(src.data_ptr(), dst.data_ptr(), w.data_ptr(), out.data_ptr(), src.shape[0], n,
+                 int(src.dtype == torch.int64), backend.current_stream(src))
+        if err:
+            raise RuntimeError(f"demand_accum_launch: CUDA error {err}")
+        return out
+
+    for r in range(rounds):
+        for name, fn in fns.items():
+            out = []
+            for label, src, dst, w, n, exact, mass in cases:
+                got = call(fn, src, dst, w, n)
+                torch.cuda.synchronize()
+                ok = "split, not checked" if "alone" in name else (
+                    f"within 1e-5 of the cell mass {bool(((got.double() - exact).abs() <= 1e-5 * mass + 1e-30).all())}")
+                ms = event_ms(lambda: call(fn, src, dst, w, n), 20)
+                out.append(f"{label} {ms:.4f} ms ({ok})")
+            print(f"accum round {r} [{name}]: " + "; ".join(out), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernels", nargs="*", help=f"any of {', '.join(VARIANTS)} (default: all)")
+    ap.add_argument("kernels", nargs="*", help=f"any of {', '.join(VARIANTS)}, accum (default: all)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--baseline", type=Path,
                     help="csrc directory of an earlier tree (fused: its one-block kernel; bid: its op)")
     args = ap.parse_args()
-    if set(args.kernels) - set(VARIANTS):
-        ap.error(f"unknown kernels {sorted(set(args.kernels) - set(VARIANTS))}")
+    if set(args.kernels) - set(VARIANTS) - {"accum"}:
+        ap.error(f"unknown kernels {sorted(set(args.kernels) - set(VARIANTS) - {'accum'})}")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -417,7 +546,10 @@ def main() -> None:
         backend.CSRC_DIR, backend.BUILD_DIR = orig, VARIANTS_DIR / "lib"
     runners = {"flash": flash_case, "bid": lambda: bid_case(baseline_lib), "auction": auction_case, "fused": lambda: fused_case(baseline_lib),
                "ssd": ssd_case}
-    for kernel in args.kernels or list(VARIANTS):
+    for kernel in args.kernels or [*VARIANTS, "accum"]:
+        if kernel == "accum":
+            accum_variants(args.rounds, args.baseline.resolve() if args.baseline else None)
+            continue
         variants = dict(VARIANTS[kernel])
         if kernel in ("fused", "bid") and baseline_lib is not None:
             variants[BASELINE] = ([], None)

@@ -172,11 +172,31 @@
    the loss and the query heads were sharded. qwen3-moe's
    ``flash_attention`` FLOPs a chip must equal ``kernel_cost`` for 2 of its
    32 query heads (the model axis of 16 splits the query heads under GQA).
-18. Prints one ``{"kernels": [...]}`` line (launches split by path for
-   the auction kernels and ``polish_2swap``, the online path with its flow replay, the
-   dashboard, the serving phase, the shim and bench/matching among them,
-   and for ``flash_attention``, the gpt-100m run and the sharded step among
-   them) and, last, the ``{"ok": true, "device": {...}}`` line.
+18. The entry points above the solver API, each as a user calls it, with the
+   counters set to 0 just before each and read after it, and its seconds
+   printed: ``bench.runtime`` (the §V-A table: host ``spectra`` mean / p95
+   and ``spectra_torch`` ms a matrix at B = 16 on gpt, moe, benchmark, at
+   B = 2 on benchmark_large n = 256 and permutations_large n = 512, with the
+   device/host makespan; every row finite, ``auction_rounds`` and
+   ``auction_fused`` launched); ``bench.serve`` with its gates (async/sync ≥
+   1.2 beside the ideal ratio and a batch's solve time, hit rate ≥ 0.70, ≥ 10
+   schedules/s, e2e p99 ≤ 2 s, the overload shedding within its bound with
+   every ticket accounted for); ``bench.online`` (gpt, moe, benchmark at
+   T = 8 and 32, host controller and device scan); ``bench.scenarios
+   --solver spectra_torch --online --flowsim --obs`` on gpt, moe, benchmark;
+   then, after the dry run, ``bench.experiments`` on its two artifacts (the
+   §Dry-run and §Roofline tables, the roofline CSV with the fabric's CCT from
+   host ``spectra`` and from ``spectra_torch``); and the examples
+   ``batched_device_scheduling``, ``serve_loadtest``, ``serve_decode`` and
+   ``moe_traffic_schedule``. The serve gates and the scenario mode's exit
+   status are enforced after the kernels line.
+19. Prints one ``{"entry_points": ...}`` line and one ``{"kernels": [...]}``
+   line (launches split by path for the auction kernels and
+   ``polish_2swap``, the online path with its flow replay, the dashboard,
+   the serving phase, the shim, bench/matching and the entry points of 18
+   among them, and for ``flash_attention``, the gpt-100m run, the sharded
+   step and the examples among them) and, last, the ``{"ok": true,
+   "device": {...}}`` line.
    Any failed check exits non-zero.
 
 Without a CUDA device, or without the repository beside it, it fails.
@@ -188,8 +208,10 @@ import argparse
 import json
 import os
 import signal
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -550,6 +572,7 @@ def phase_flash(rng) -> dict:
         (4, 6, 6, 1500, 1500, 64, False, None),    # whisper-tiny encoder: Sk a multiple of no key tile
         (4, 6, 6, 448, 1500, 64, False, None),     # whisper-tiny cross-attention, Sq ≠ Sk
         (4, 6, 6, 448, 448, 64, True, None),       # whisper-tiny decoder self-attention: 3.5 key tiles
+        (8, 4, 4, 64, 64, 32, True, None),         # deepseek-moe-16b reduced, the moe_traffic_schedule example
     ]
     max_err, timed, moe_timed = 0.0, None, None
     for B, Hq, Hkv, Sq, Sk, D, causal, window in cases:
@@ -2564,6 +2587,192 @@ def phase_dryrun(child) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The entry points above the solver API: bench/{runtime,serve,online,
+# scenarios,experiments} and the examples, each as a user runs it (no
+# --device: the card).
+# ---------------------------------------------------------------------------
+
+def kernel_counters() -> dict:
+    """Every kernel's launch counter but demand_accum's (no path calls it)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    return {**auction_counters(), "flash_attention": flash_attention.launches, "ssd_chunk": ssd_chunk.launches}
+
+
+def zero_kernel_counters() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    zero_auction_counters()
+    flash_attention.launches = ssd_chunk.launches = 0
+
+
+RUNTIME_QUALITY = (0.97, 1.02)  # device/host makespan, as the solver layer's bucket ratios are bounded
+
+
+def phase_runtime() -> tuple[dict, list[dict]]:
+    """bench/runtime (the §V-A runtime table) at full size: gpt, moe and
+    benchmark at B = 16 with 10 host reps, benchmark_large (n = 256) and
+    permutations_large (n = 512) at B = 2 with 2. Every row must be finite,
+    with its device/host makespan within RUNTIME_QUALITY; the n ≤ 128 rows
+    launch auction_rounds, the large ones auction_fused, and no
+    masked_row_top2. The gpt row's B = 16 batch is then solved again on the
+    card and on the plain CPU path: makespans equal to 1e-4."""
+    from repro_torch.api import solve_many
+    from repro_torch.bench import runtime
+    from repro_torch.bench.common import fast_options
+
+    zero_kernel_counters()
+    rows, _ = runtime.run()
+    launches = kernel_counters()
+    lo, hi = RUNTIME_QUALITY
+    for r in rows:
+        check(all(np.isfinite(r[k]) and r[k] > 0 for k in ("mean_ms", "p95_ms", "batched_device_ms_per_instance",
+                                                          "device_quality_vs_host")), f"runtime row {r}")
+        check(lo <= r["device_quality_vs_host"] <= hi,
+              f"runtime {r['workload']}: device/host makespan {r['device_quality_vs_host']} outside {RUNTIME_QUALITY}")
+        print(f"runtime {r['workload']}: host spectra mean {r['mean_ms']:.3f} ms, p95 {r['p95_ms']:.3f} ms; "
+              f"spectra_torch {r['batched_device_ms_per_instance']:.3f} ms a matrix at B={r['batch_size']} (one "
+              f"solve_many after a warm one); device/host makespan {r['device_quality_vs_host']:.4f}")
+    check(launches["auction_rounds"] > 0 and launches["auction_fused"] > 0 and launches["auction_bid"] == 0,
+          f"runtime launches {launches}")
+    Ds = runtime.device_matrices("gpt", runtime.BATCH)
+    gpu = solve_many(Ds, 4, runtime.DELTA, solver="spectra_torch", options=fast_options(None))
+    cpu = solve_many(Ds, 4, runtime.DELTA, solver="spectra_torch", options=fast_options("cpu"))
+    rel = max(abs(g.makespan - c.makespan) / c.makespan for g, c in zip(gpu, cpu))
+    check(rel <= 1e-4, f"runtime gpt B={len(Ds)}: GPU makespans differ from the plain CPU path by {rel}")
+    print(f"runtime gpt B={len(Ds)}: GPU makespans agree with the plain CPU path (max relative difference {rel:.3g})")
+    return launches, rows
+
+
+def phase_serve_bench() -> tuple[dict, list[str], list[dict]]:
+    """bench/serve --check: speedup (n = 16, B = 4, 6 batches, the install at
+    max(solve, 10 ms)), the tiny and mixed cache profiles, the 2× overload.
+    Its gates are returned and enforced once every later phase has printed."""
+    from repro_torch.bench import serve
+    from repro_torch.bench.common import write_artifact
+
+    zero_kernel_counters()
+    rows = serve.run(fast=False)
+    launches = kernel_counters()
+    failures = serve.check(rows)
+    write_artifact("serve_torch", {"rows": rows, "device": "cuda"}, workload="serve-control-plane")
+    sp = next(r for r in rows if r["experiment"] == "speedup")
+    tiny = next(r for r in rows if r["experiment"] == "cache" and r["profile"] == "tiny")
+    over = next(r for r in rows if r["experiment"] == "overload")
+    print(f"bench/serve: speedup async/sync {sp['speedup']:.3f} (gate {serve.SPEEDUP_GATE}) beside its ideal "
+          f"{sp['ideal_speedup']:.3f}, a batch's solve {sp['solve_ms']:.2f} ms, install {sp['install_ms']:.2f} ms; "
+          f"tiny profile hit rate {tiny['cache_hit_rate']:.3f} (gate {serve.CACHE_HIT_GATE}), "
+          f"{tiny['schedules_per_sec']:.1f} schedules/s (floor {serve.THROUGHPUT_FLOOR}), e2e p99 "
+          f"{tiny['p99_e2e_s']:.4f} s (ceiling {serve.P99_CEILING}); overload shed {over['shed']} of "
+          f"{over['requests']}, max depth {over['max_depth']} (bound {over['max_queue']}), accounted "
+          f"{over['accounted']}; gates {'FAILED: ' + '; '.join(failures) if failures else 'passed'}; "
+          f"launches {launches}")
+    check(launches["auction_rounds"] > 0, f"bench/serve launches {launches}")
+    return launches, failures, [{k: v for k, v in r.items() if k != "metrics"} for r in rows]
+
+
+def phase_online_fig() -> tuple[dict, list[dict]]:
+    """bench/online at full size: gpt, moe, benchmark at T = 8 and 32, the
+    host controller and the device scan. The device rows must run the scan
+    and launch auction_rounds."""
+    from repro_torch.bench import online
+
+    zero_kernel_counters()
+    data, rows = online.run()
+    launches = kernel_counters()
+    for d, r in zip(data, rows):
+        check(np.isfinite(d["ratio"]) and (d["solver"] == "spectra" or d["online_backend"] == "scan"),
+              f"online row {d}")
+        print(f"{r['name']}: online/stateless {d['ratio']:.4f} ({d['online_total_makespan']:.4f} / "
+              f"{d['stateless_total_makespan']:.4f}), reuse {d['reuse']}, δ paid {d['delta_paid']:.3f}, avoided "
+              f"{d['delta_avoided']:.3f}; {1e3 * d['runtime_s'] / d['T']:.2f} ms a period ({d['online_backend']})")
+    check(launches["auction_rounds"] > 0, f"bench/online launches {launches}")
+    return launches, data
+
+
+def phase_scenario_mode() -> tuple[dict, int]:
+    """bench/scenarios --solver spectra_torch --online --flowsim --obs on gpt,
+    moe and benchmark at their registered sizes; its exit status is enforced
+    once every later phase has printed."""
+    from repro_torch.bench import scenarios
+
+    zero_kernel_counters()
+    rc = scenarios.main(["--scenario", "gpt", "moe", "benchmark", "--solver", "spectra_torch", "--online",
+                         "--flowsim", "--obs"])
+    launches = kernel_counters()
+    print(f"bench/scenarios exit status {rc}; launches {launches}")
+    check(launches["auction_rounds"] > 0, f"bench/scenarios launches {launches}")
+    return launches, rc
+
+
+def phase_experiments() -> tuple[dict, list[dict]]:
+    """bench/experiments on the dry-run child's two artifacts (copied alone
+    into a directory of their own, so no artifact of an earlier run enters
+    the tables): both tables and the roofline CSV, one row a cell, each with
+    the fabric's CCT from host spectra and from spectra_torch on the card."""
+    from repro_torch.bench import experiments
+    from repro_torch.launch.dryrun import cell_path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape in DRYRUN_CELLS:
+            shutil.copy(cell_path(arch, shape, False), tmp)
+        zero_kernel_counters()
+        table = experiments.report(Path(tmp), experiments.OUT_DIR, None)
+        launches = kernel_counters()
+    check(sorted(t["cell"] for t in table) == sorted(f"{arch}×{shape}" for arch, shape in DRYRUN_CELLS),
+          f"bench/experiments rows {[t['cell'] for t in table]}, expected the cells {DRYRUN_CELLS}")
+    print(f"bench/experiments: {len(table)} roofline rows; launches {launches}")
+    check(launches["auction_rounds"] > 0, f"bench/experiments launches {launches}")
+    return launches, table
+
+
+def phase_examples() -> tuple[dict, dict]:
+    """The four examples of the device path as a user runs them, each with its
+    seconds and launches: batched_device_scheduling (auction_rounds),
+    serve_loadtest (auction_rounds), serve_decode (decode by replay, as the
+    reference's: no kernel), moe_traffic_schedule (flash_attention in its
+    train steps)."""
+    from repro_torch.api import SolveOptions, solve_many
+    from repro_torch.examples import batched_device_scheduling, moe_traffic_schedule, serve_decode, serve_loadtest
+    from repro_torch.scenarios import make_trace
+
+    total: dict = {}
+    out = {}
+    for name, mod in (("batched_device_scheduling", batched_device_scheduling), ("serve_loadtest", serve_loadtest),
+                      ("serve_decode", serve_decode), ("moe_traffic_schedule", moe_traffic_schedule)):
+        zero_kernel_counters()
+        t0 = time.perf_counter()
+        res = mod.main([])
+        took = time.perf_counter() - t0
+        launches = kernel_counters()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        print(f"example {name}: {took:.1f} s; launches {launches}")
+        out[name] = dict(seconds=took, launches=launches)
+        if name == "batched_device_scheduling":
+            lo, hi = RUNTIME_QUALITY
+            check(launches["auction_rounds"] > 0 and all(lo <= q <= hi for q in res["ratios"]),
+                  f"{name}: device/host ratios {res['ratios']} outside {RUNTIME_QUALITY}, {launches}")
+            cpu = solve_many(make_trace("benchmark", n=32, m=8, num_big=4, periods=4).demands, 4, 0.01,
+                             solver="spectra_torch", options=SolveOptions(extra={"matcher": "auction", "device": "cpu"}))
+            rel = max(abs(g.makespan - c.makespan) / c.makespan for g, c in zip(res["reports"], cpu))
+            check(rel <= 1e-4, f"{name}: GPU makespans differ from the plain CPU path by {rel}")
+            print(f"example {name}: GPU makespans agree with the plain CPU path (max relative difference {rel:.3g})")
+            out[name]["worst_quality"] = res["worst"]
+        elif name == "serve_loadtest":
+            check(launches["auction_rounds"] > 0 and res["open_loop"]["schedules"] == res["arrivals"]
+                  and res["shed"] > 0 and res["served"] + res["shed"] == res["overload"], f"{name}: {res}, {launches}")
+            out[name].update(hit_rate=res["open_loop"]["cache_hit_rate"], shed=res["shed"])
+        elif name == "serve_decode":
+            check(all(t.shape == (4, 64) for t in res["tokens"].values()), f"{name}: token shapes")
+        else:
+            check(launches["flash_attention"] > 0 and res["load"].sum() > 0, f"{name}: {launches}")
+    return total, out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2674,7 +2883,26 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str, dry_child) -> Non
     by_shim = phase_shim(np.random.default_rng([21, args.seed]))
     by_bench, bench_failures, bench_numbers = phase_bench_matching()
     print(f"shim and bench/matching phases: {time.perf_counter() - t0:.1f} s")
+    entry = {}  # the entry points' launches by phase
+    t0 = time.perf_counter()
+    entry["runtime"], runtime_rows = phase_runtime()
+    print(f"runtime phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    entry["serve_bench"], serve_failures, serve_rows = phase_serve_bench()
+    print(f"bench/serve phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    entry["online_fig"], online_fig = phase_online_fig()
+    print(f"bench/online phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    entry["scenario_mode"], scenario_rc = phase_scenario_mode()
+    print(f"bench/scenarios phase: {time.perf_counter() - t0:.1f} s")
     dry = phase_dryrun(dry_child)
+    t0 = time.perf_counter()
+    entry["experiments"], roofline = phase_experiments()
+    print(f"bench/experiments phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    entry["examples"], examples = phase_examples()
+    print(f"examples phase: {time.perf_counter() - t0:.1f} s")
     launches["demand_accum"] = demand_accum.launches
 
     bid_main = bid["shapes"][3]  # (4, 512): the widest the round loop serves on the solver layer's path
@@ -2686,7 +2914,7 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str, dry_child) -> Non
     def paths(key: str) -> dict:
         return {"solver_buckets": launches[key], "solver_layer": by_layer[key], "online": by_online[key],
                 "dashboard": by_dashboard.get(key, 0), "serving": by_serving.get(key, 0),
-                "shim": by_shim[key], "bench_matching": by_bench[key]}
+                "shim": by_shim[key], "bench_matching": by_bench[key], **{k: v[key] for k, v in entry.items()}}
 
     kernels = [
         dict(name="auction_bid", route="cuda", source="src/repro_torch/csrc/auction_bid.cu",
@@ -2725,14 +2953,16 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str, dry_child) -> Non
              cases=polish["cases"]),
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:29",
-             launches=sum(by_path.values()), launches_by_path=by_path,
+             launches=sum(by_path.values()) + entry["examples"]["flash_attention"],
+             launches_by_path={**by_path, "examples": entry["examples"]["flash_attention"]},
              max_abs_err=flash["max_abs_err"], ms=flash["ms"], plain_ms=flash["plain_ms"],
              bound_ms=flash["bound_ms"], bound_by=flash["bound_by"], library_ms=flash["library_ms"],
              shape=flash["shape"], dtype=flash["dtype"], shapes=flash["shapes"] + [gpt["flash_f32"]]),
         dict(name="ssd_chunk", route="cuda", source="src/repro_torch/csrc/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:25",
-             launches=launches["ssd_chunk"] + train_launches["ssd_chunk"],
-             launches_by_path={"forward": launches["ssd_chunk"], "train": train_launches["ssd_chunk"]},
+             launches=launches["ssd_chunk"] + train_launches["ssd_chunk"] + entry["examples"]["ssd_chunk"],
+             launches_by_path={"forward": launches["ssd_chunk"], "train": train_launches["ssd_chunk"],
+                               "examples": entry["examples"]["ssd_chunk"]},
              max_abs_err=ssd["max_abs_err"], ms=ssd["ms"], plain_ms=ssd["plain_ms"],
              bound_ms=ssd["bound_ms"], bound_by=ssd["bound_by"], library_ms=None,
              shape=ssd["shape"], chunk=ssd["chunk"], dtype=ssd["dtype"]),
@@ -2747,8 +2977,12 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str, dry_child) -> Non
     print(json.dumps({"serving": {k: v for k, v in serving.items() if k != "launches"}}))
     print(json.dumps({"gpt100m": {k: v for k, v in gpt.items() if k != "launches"}, "sharded_step": sharded,
                       "dryrun": dry}))
+    print(json.dumps({"entry_points": {"runtime": runtime_rows, "serve": serve_rows, "online": online_fig,
+                                       "scenario_mode_rc": scenario_rc, "roofline": roofline, "examples": examples}}))
     print(json.dumps({"kernels": kernels}))
     check(not bench_failures, f"bench/matching gates: {bench_failures}")
+    check(not serve_failures, f"bench/serve gates: {serve_failures}")
+    check(scenario_rc == 0, f"bench/scenarios exited {scenario_rc}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

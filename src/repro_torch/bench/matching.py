@@ -21,19 +21,19 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
-from datetime import datetime, timezone
 from pathlib import Path
 
 import numpy as np
+
+from .common import OUT_DIR, write_artifact
 
 SIZES = (100, 256, 512, 1024)
 FAST_SIZES = (100, 256)
 QUALITY_GATE = 1.10
 SPEEDUP_GATE = 1.5
-OUT = Path(__file__).resolve().parents[3] / "build" / "repro_torch" / "BENCH_matching_torch.json"
+OUT = OUT_DIR / "BENCH_matching_torch.json"
 
 
 def bench_weights(n: int, k: int = 16, seed: int = 0) -> np.ndarray:
@@ -189,23 +189,9 @@ def check(rows: list[dict]) -> list[str]:
     return failures
 
 
-def _git_sha() -> str | None:
-    try:
-        out = subprocess.run(["git", "rev-parse", "HEAD"], cwd=Path(__file__).resolve().parent,
-                             capture_output=True, text=True, timeout=10)
-    except OSError:
-        return None
-    return out.stdout.strip() or None if out.returncode == 0 else None
-
-
 def write(rows: list[dict], device: str, path: Path = OUT) -> Path:
     """The artifact, in the envelope of ``benchmarks/artifact.py``."""
-    path.parent.mkdir(parents=True, exist_ok=True)
-    doc = {"schema": "repro-bench/v1", "name": "matching_torch", "git_sha": _git_sha(),
-           "timestamp": datetime.now(timezone.utc).isoformat(timespec="seconds"),
-           "workload": "perm16+M-bonus", "metrics": {"rows": rows, "device": device}}
-    path.write_text(json.dumps(doc, indent=2))
-    return path
+    return write_artifact("matching_torch", {"rows": rows, "device": device}, workload="perm16+M-bonus", path=path)
 
 
 def main(argv=None) -> int:

@@ -67,10 +67,22 @@ if not torch.cuda.is_available():
     from repro_torch.launch.train_gpt_ocs import make_gpt_trainer
     from repro_torch.bench.matching import main as bench_main
     from repro_torch.core.torchopt.auction import auction_maximize
+    from repro_torch.bench import experiments, online, runtime, scenarios, serve
+    from repro_torch.examples import (batched_device_scheduling, moe_traffic_schedule, serve_decode,
+                                      serve_loadtest)
     entry_raised = {}
     for name, call in (("gpt_twin", lambda: make_gpt_trainer(tiny=True)),
                        ("bench_matching", lambda: bench_main(["--fast"])),
-                       ("auction_shim", lambda: auction_maximize(np.eye(4)))):
+                       ("auction_shim", lambda: auction_maximize(np.eye(4))),
+                       ("bench_runtime", lambda: runtime.main(["--fast"])),
+                       ("bench_serve", lambda: serve.main(["--fast"])),
+                       ("bench_online", lambda: online.main(["--fast"])),
+                       ("bench_scenarios", lambda: scenarios.main(["--scenario", "gpt", "--fast"])),
+                       ("bench_experiments", lambda: experiments.main([])),
+                       ("example_batched", lambda: batched_device_scheduling.main([])),
+                       ("example_loadtest", lambda: serve_loadtest.main([])),
+                       ("example_decode", lambda: serve_decode.main([])),
+                       ("example_moe_traffic", lambda: moe_traffic_schedule.main([]))):
         try:
             call()
         except RuntimeError as e:
@@ -136,7 +148,11 @@ def test_import_loads_no_jax_and_no_reference(probe):
         "repro_torch.parallel.sharding", "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
         "repro_torch.launch.perf", "repro_torch.launch.train_gpt_ocs", "repro_torch.analysis.collectives",
         "repro_torch.analysis.roofline", "repro_torch.train.grad_compress", "repro_torch.core.torchopt.auction",
-        "repro_torch.bench.matching",
+        "repro_torch.bench.matching", "repro_torch.bench.common", "repro_torch.bench.runtime",
+        "repro_torch.bench.serve", "repro_torch.bench.online", "repro_torch.bench.scenarios",
+        "repro_torch.bench.experiments", "repro_torch.examples.batched_device_scheduling",
+        "repro_torch.examples.serve_loadtest", "repro_torch.examples.serve_decode",
+        "repro_torch.examples.moe_traffic_schedule",
     ):
         assert name in probe["modules"]
 
@@ -154,5 +170,7 @@ def test_default_device_raises_without_cuda(probe):
     assert "device='cpu'" in probe["train_raised"]
     assert probe["trainer_raised"], "Trainer with no device ran on the CPU"
     assert "device='cpu'" in probe["trainer_raised"]
-    for name, msg in probe["entry_raised"].items():  # the gpt-100m twin, bench/matching, the auction shim
+    # The gpt-100m twin, the auction shim, every bench/ main and every example.
+    assert len(probe["entry_raised"]) == 12
+    for name, msg in probe["entry_raised"].items():
         assert msg and "device='cpu'" in msg, f"{name} with no device ran on the CPU"

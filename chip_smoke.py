@@ -37,6 +37,18 @@
    port's plain CPU path to 1e-4. One more run of the permutations bucket
    times every ``auction_fused`` call with CUDA events, splitting the
    bucket's wall into the kernel and the rest.
+   Then the matcher registry and the default-matcher policy
+   (``phase_matcher_api``) on the gpt and moe buckets, the counters set to 0
+   before each call: ``"auction2"`` (``match_auction`` registered again)
+   equal to ``"auction"`` bit for bit with the same ``auction_rounds``
+   launches; under ``set_default_matcher_policy(lambda n: "auction_fused")``
+   with no matcher named, reports naming ``auction_fused``, its launches and
+   no ``auction_rounds``, makespans equal to the call naming it to 1e-4 (and
+   whether bit-equal); ``run_scenario("gpt", solver="spectra_torch",
+   online=True)`` launching it, its online/stateless equal to the named
+   run's to 1e-4; a ``SolverService`` flush reporting it; after
+   ``set_default_matcher_policy(None)``, ``auction_rounds`` on gpt again.
+   The policy and the registration are undone however the phase ends.
    Then the solver layer. ``match_auction`` / ``match_auction_fr`` above
    n = 128 (the round loop, one ``masked_row_top2`` launch a round) at
    (2, 160) and (2, 256), bit for bit against the CPU's plain path; then,
@@ -190,12 +202,14 @@
    ``batched_device_scheduling``, ``serve_loadtest``, ``serve_decode`` and
    ``moe_traffic_schedule``. The serve gates and the scenario mode's exit
    status are enforced after the kernels line.
-19. Prints one ``{"entry_points": ...}`` line and one ``{"kernels": [...]}``
+19. Prints one ``{"entry_points": ...}`` line, one ``{"matcher_api": ...}``
+   line and one ``{"kernels": [...]}``
    line (launches split by path for the auction kernels and
    ``polish_2swap``, the online path with its flow replay, the dashboard,
-   the serving phase, the shim, bench/matching and the entry points of 18
-   among them, and for ``flash_attention``, the gpt-100m run, the sharded
-   step and the examples among them) and, last, the ``{"ok": true,
+   the serving phase, the shim, bench/matching, the matcher API phase and
+   the entry points of 18 among them, and for ``flash_attention``, the
+   gpt-100m run, the sharded step and the examples among them) and, last,
+   the ``{"ok": true,
    "device": {...}}`` line.
    Any failed check exits non-zero.
 
@@ -1541,6 +1555,116 @@ def phase_main_path(seed: int) -> dict:
     return launches
 
 
+def _bit_equal(a, b) -> bool:
+    """Two lists of reports with the same decompositions and makespans, bit for bit."""
+    return all(
+        x.makespan == y.makespan and len(x.decomposition.perms) == len(y.decomposition.perms)
+        and all(np.array_equal(p, q) for p, q in zip(x.decomposition.perms, y.decomposition.perms))
+        and x.decomposition.alphas == y.decomposition.alphas
+        for x, y in zip(a, b)
+    )
+
+
+def phase_matcher_api(seed: int) -> tuple[dict, dict]:
+    """The matcher registry and the default-matcher policy on the card, on the
+    gpt (n = 32) and moe (n = 64) buckets at B = 8. ``"auction2"``, registered
+    as ``match_auction``, must equal ``"auction"`` bit for bit with the same
+    ``auction_rounds`` launches. Under ``set_default_matcher_policy(lambda n:
+    "auction_fused")`` with no matcher named: ``solve_many`` reports
+    ``auction_fused``, launches it and no ``auction_rounds``, and agrees with
+    the same call naming the matcher to 1e-4; ``run_scenario("gpt", ...,
+    online=True)`` launches it and its online/stateless equals the run naming
+    the matcher to 1e-4; a ``SolverService`` flush reports it. After
+    ``set_default_matcher_policy(None)`` the gpt bucket launches
+    ``auction_rounds`` again. Returns the phase's launches (counters set to 0
+    before each call and summed after it) and the printed numbers."""
+    from repro_torch.api import SolveOptions, solve_many
+    from repro_torch.core.torchopt import MATCHERS, match_auction, register_matcher, set_default_matcher_policy
+    from repro_torch.scenarios import run_scenario
+    from repro_torch.serve import SolverService
+
+    total: dict = {}
+
+    def drive(fn):
+        zero_kernel_counters()
+        out = fn()
+        launches = kernel_counters()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return out, launches
+
+    def solve(Ds, matcher=None):
+        extra = {} if matcher is None else {"matcher": matcher}
+        return drive(lambda: solve_many(Ds, 4, 0.01, solver="spectra_torch", options=SolveOptions(extra=extra)))
+
+    t0 = time.perf_counter()
+    info: dict = {"registered": {}, "policy": {}}
+    picked = {name: Ds for name, _, Ds in buckets(seed)[:2]}
+    register_matcher("auction2", match_auction)
+    try:
+        for name, Ds in picked.items():
+            (a, la), (b, lb) = solve(Ds, "auction"), solve(Ds, "auction2")
+            same = _bit_equal(a, b)
+            check(same and all(r.extras["matcher"] == "auction2" for r in b),
+                  f"matcher_api {name}: auction2 differs from auction")
+            check(la["auction_rounds"] > 0 and la == lb, f"matcher_api {name}: launches auction {la}, auction2 {lb}")
+            info["registered"][name] = dict(bit_equal=same, auction_rounds=lb["auction_rounds"])
+            print(f"matcher_api {name}: auction2 equals auction bit for bit: {same}; auction_rounds launches "
+                  f"{la['auction_rounds']} and {lb['auction_rounds']}")
+
+        set_default_matcher_policy(lambda n: "auction_fused")
+        for name, Ds in picked.items():
+            got, lp = solve(Ds)
+            named, _ = solve(Ds, "auction_fused")
+            check(all(r.extras["matcher"] == "auction_fused" and r.validated and r.extras["converged"] for r in got),
+                  f"matcher_api {name}: under the policy the reports read {[r.extras['matcher'] for r in got]}")
+            check(lp["auction_fused"] > 0 and lp["auction_rounds"] == 0 and lp["auction_bid"] == 0,
+                  f"matcher_api {name}: launches under the policy {lp}")
+            rel = max(abs(g.makespan - w.makespan) / w.makespan for g, w in zip(got, named))
+            check(rel <= 1e-4, f"matcher_api {name}: policy vs named auction_fused makespans differ by {rel}")
+            same = _bit_equal(got, named)
+            info["policy"][name] = dict(auction_fused=lp["auction_fused"], auction_rounds=lp["auction_rounds"],
+                                        max_rel=rel, bit_equal=same)
+            print(f"matcher_api {name}: under the policy auction_fused launches {lp['auction_fused']} (cluster "
+                  f"{lp['auction_fused_cluster']}), auction_rounds {lp['auction_rounds']}; makespans against the "
+                  f"matcher named: max relative difference {rel:.3g}, bit-equal: {same}")
+
+        rep, ls = drive(lambda: run_scenario("gpt", solver="spectra_torch", online=True))
+        check(ls["auction_fused"] > 0 and ls["auction_rounds"] == 0,
+              f"matcher_api: run_scenario under the policy launched {ls}")
+        ref, _ = drive(lambda: run_scenario("gpt", solver="spectra_torch", online=True,
+                                            options=SolveOptions(extra={"matcher": "auction_fused"})))
+        ratio = [r.online_summary()["online_total_makespan"] / r.online_summary()["stateless_total_makespan"]
+                 for r in (rep, ref)]
+        check(abs(ratio[0] - ratio[1]) <= 1e-4 * ratio[1],
+              f"matcher_api: run_scenario online/stateless {ratio[0]} under the policy, {ratio[1]} named")
+        info["scenario"] = dict(auction_fused=ls["auction_fused"], online_over_stateless=ratio[0],
+                                named=ratio[1])
+        print(f"matcher_api run_scenario gpt online: auction_fused launches {ls['auction_fused']}, auction_rounds "
+              f"{ls['auction_rounds']}; online/stateless {ratio[0]:.6f} under the policy, {ratio[1]:.6f} named")
+
+        svc = SolverService(4, 0.01, solver="spectra_torch")
+        svc.submit_trace(picked["gpt"])
+        reports, lv = drive(svc.flush)
+        check(all(r.extras["matcher"] == "auction_fused" for r in reports.values()) and lv["auction_fused"] > 0,
+              f"matcher_api: the SolverService flush reported {[r.extras['matcher'] for r in reports.values()]}, "
+              f"launches {lv}")
+        info["service_matcher"] = "auction_fused"
+
+        set_default_matcher_policy(None)
+        after, lr = solve(picked["gpt"])
+        check(all(r.extras["matcher"] == "auction" for r in after) and lr["auction_rounds"] > 0
+              and lr["auction_fused"] == 0, f"matcher_api: after the reset the gpt bucket launched {lr}")
+        info["reset_auction_rounds"] = lr["auction_rounds"]
+    finally:
+        set_default_matcher_policy(None)
+        MATCHERS.pop("auction2", None)
+    info["seconds"] = time.perf_counter() - t0
+    print(f"matcher_api: service flush reports auction_fused; after the reset auction_rounds launches "
+          f"{lr['auction_rounds']}; {info['seconds']:.1f} s")
+    return total, info
+
+
 # Fig. 2's worked example (.claude/skills/verify/SKILL.md: spectra gives 0.5300).
 FIG2 = np.array([
     [0.60, 0.30, 0.00, 0.10],
@@ -2841,6 +2965,7 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str, dry_child) -> Non
     print(f"solver path: {time.perf_counter() - t0:.1f} s")
     check(launches["auction_rounds"] > 0 and launches["auction_fused"] > 0 and launches["auction_bid"] == 0,
           f"main path launches {launches}")
+    api_launches, matcher_api = phase_matcher_api(args.seed)
     t0 = time.perf_counter()
     above = phase_matchers_above_128(np.random.default_rng([17, args.seed]))
     layer = phase_solver_layer(args.seed)
@@ -2883,7 +3008,7 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str, dry_child) -> Non
     by_shim = phase_shim(np.random.default_rng([21, args.seed]))
     by_bench, bench_failures, bench_numbers = phase_bench_matching()
     print(f"shim and bench/matching phases: {time.perf_counter() - t0:.1f} s")
-    entry = {}  # the entry points' launches by phase
+    entry = {"matcher_api": api_launches}  # the entry points' launches by phase
     t0 = time.perf_counter()
     entry["runtime"], runtime_rows = phase_runtime()
     print(f"runtime phase: {time.perf_counter() - t0:.1f} s")
@@ -2979,6 +3104,7 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str, dry_child) -> Non
                       "dryrun": dry}))
     print(json.dumps({"entry_points": {"runtime": runtime_rows, "serve": serve_rows, "online": online_fig,
                                        "scenario_mode_rc": scenario_rc, "roofline": roofline, "examples": examples}}))
+    print(json.dumps({"matcher_api": matcher_api}))
     print(json.dumps({"kernels": kernels}))
     check(not bench_failures, f"bench/matching gates: {bench_failures}")
     check(not serve_failures, f"bench/serve gates: {serve_failures}")

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...kernels.backend import resolve_device
 from ..decompose import Decomposition
 from .matching import get_matcher
 
@@ -250,3 +251,24 @@ def lpt_schedule(dec: TorchDecomposition, s: int, delta: torch.Tensor):
         torch.full((B, n), -1, dtype=torch.int64, device=dev), int(valid.sum(dim=1).max()) if B else 0,
     )
     return assignment, loads, loads.amax(dim=1)
+
+
+def spectra_torch(
+    D,
+    s: int,
+    delta,
+    *,
+    matcher: str = "auction",
+    repair_rounds: int = 0,
+    device: str | torch.device | None = None,
+):
+    """DECOMPOSE + LPT for each lane of ``D`` (B, n, n); returns ``(dec,
+    assignment (B, n), loads (B, s), makespan (B,))``. ``delta`` is one float
+    for the batch or a (B,) vector. ``device=None`` means CUDA and raises
+    without a GPU."""
+    dev = resolve_device(device)
+    D = torch.as_tensor(D, dtype=torch.float32, device=dev)
+    deltas = torch.as_tensor(delta, dtype=torch.float32, device=dev).expand(D.shape[0]).contiguous()
+    dec = decompose(D, matcher=matcher, repair_rounds=repair_rounds)
+    assignment, loads, makespan = lpt_schedule(dec, s, deltas)
+    return dec, assignment, loads, makespan

@@ -11,11 +11,12 @@ from __future__ import annotations
 import torch
 
 
-def lower_bound(D: torch.Tensor, s: int, delta: torch.Tensor) -> torch.Tensor:
-    """(B,) §IV lower bounds of ``D`` (B, n, n) with per-lane ``delta`` (B,)."""
+def lower_bound(D: torch.Tensor, s: int, delta: torch.Tensor | float) -> torch.Tensor:
+    """(B,) §IV lower bounds of ``D`` (B, n, n) with per-lane ``delta`` (B,)
+    or one float ``delta`` for the batch."""
     D = D.to(torch.float32)
-    delta = delta.to(torch.float32)
     B, n, _ = D.shape
+    delta = torch.as_tensor(delta, dtype=torch.float32, device=D.device).expand(B)
     lines = torch.cat([D, D.transpose(1, 2)], dim=1)   # (B, 2n, n)
     k = (lines > 0).sum(dim=2)
     w = lines.sum(dim=2, dtype=torch.float64).float()  # same on every device

@@ -20,6 +20,16 @@ own thread block on the card, under a per-lane done mask in the round
 loop), so a lane's result equals its own single-instance run. The ε
 schedule is formed on the host; only the round loop above n = 128 reads
 the device per round.
+
+A matcher is ``fn(W (B, n, n), *, num_phases=None, max_iters=None,
+prices0=None) -> MatchResult``: the reference's ``(perm, converged)`` and
+its ``with_prices`` return folded into one named tuple. ``register_matcher``
+adds one under a name; ``set_default_matcher_policy`` replaces the shape
+rule of ``default_matcher``. Nothing caches a matcher by name: every
+consumer (``decompose``, the online step and scan, the solver registry's
+device entries, the scenario runner, the serving plane through
+``solve_many``, ``bench.matching``) resolves the name at its next call, so
+a replacement or a policy takes effect there.
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ _EPS_FLOOR = 2.0**-22
 
 AUTOTUNE_N_THRESHOLD = 32
 AUTOTUNE_FUSED_N_THRESHOLD = 128
+
+_DEFAULT_POLICY = None  # None: the threshold rule of ``default_matcher``
 
 
 class MatchResult(NamedTuple):
@@ -61,8 +73,18 @@ def default_max_iters(n: int) -> int:
 
 
 def default_matcher(n: int) -> str:
-    """Matcher for an (n, n) shape bucket: ``auction`` to 32, ``auction_fr``
-    to 128, ``auction_fused`` above."""
+    """Matcher for an (n, n) shape bucket: the installed policy's choice, else
+    ``auction`` to 32, ``auction_fr`` to 128, ``auction_fused`` above."""
+    if _DEFAULT_POLICY is not None:
+        name = _DEFAULT_POLICY(n)
+        if name not in MATCHERS:
+            # The install-time probe sees one n; an n-dependent policy can
+            # still name an unknown matcher at another.
+            raise KeyError(
+                f"default matcher policy returned unknown matcher {name!r} "
+                f"for n={n}; available: {list_matchers()}"
+            )
+        return name
     if n <= AUTOTUNE_N_THRESHOLD:
         return "auction"
     if n <= AUTOTUNE_FUSED_N_THRESHOLD:
@@ -205,9 +227,30 @@ MATCHERS: dict[str, MatcherFn] = {
 
 def get_matcher(name: str) -> MatcherFn:
     if name not in MATCHERS:
-        raise KeyError(f"unknown matcher {name!r}; available: {sorted(MATCHERS)}")
+        raise KeyError(f"unknown matcher {name!r}; available: {list_matchers()}")
     return MATCHERS[name]
 
 
 def list_matchers() -> list[str]:
     return sorted(MATCHERS)
+
+
+def register_matcher(name: str, fn: MatcherFn, *, overwrite: bool = False) -> None:
+    """Add a matcher under ``name`` (see the module docstring for its
+    contract). A name already taken raises ``ValueError`` unless
+    ``overwrite``; a replacement takes effect at every consumer's next call."""
+    if name in MATCHERS and not overwrite:
+        raise ValueError(f"matcher {name!r} already registered")
+    MATCHERS[name] = fn
+
+
+def set_default_matcher_policy(policy: Callable[[int], str] | None) -> None:
+    """Install ``policy(n) -> matcher name`` in place of the threshold rule
+    of ``default_matcher`` (``None`` restores the rule). The policy is probed
+    at n = 8 here and checked again at every n it is asked."""
+    global _DEFAULT_POLICY
+    if policy is not None:
+        name = policy(8)
+        if name not in MATCHERS:
+            raise KeyError(f"policy returned unknown matcher {name!r}; available: {list_matchers()}")
+    _DEFAULT_POLICY = policy

@@ -1,9 +1,14 @@
 """Collective-communication traffic → rack-level demand matrices.
 
-A copy of the helpers of ``repro.traffic.collectives`` that the paper
-workloads use. Byte counts follow the ring algorithms: a ring all-reduce
-sends 2(g−1)/g · V from each member to its successor; point-to-point sends
-V. Traffic between chips in one rack never reaches the optical core.
+A copy of ``repro.traffic.collectives``. Byte counts per collective follow
+the standard ring algorithms:
+
+  ring all-reduce  : each member sends 2(g−1)/g · V to its ring successor
+  all-gather / RS  : (g−1)/g · V per member to its successor
+  all-to-all       : V/g from every member to every other member
+  point-to-point   : V from src to dst
+
+Traffic between chips in one rack never reaches the optical core.
 """
 
 from __future__ import annotations
@@ -55,6 +60,33 @@ class TrafficModel:
         per_edge = 2.0 * (g - 1) / g * nbytes
         for i, chip in enumerate(group):
             self._add(chip, group[(i + 1) % g], per_edge)
+
+    def ring_allgather(self, group: list[int], nbytes: float) -> None:
+        g = len(group)
+        if g < 2:
+            return
+        per_edge = (g - 1) / g * nbytes
+        for i, chip in enumerate(group):
+            self._add(chip, group[(i + 1) % g], per_edge)
+
+    ring_reducescatter = ring_allgather  # identical byte profile
+
+    def all_to_all(self, group: list[int], nbytes: float) -> None:
+        g = len(group)
+        if g < 2:
+            return
+        per_pair = nbytes / g
+        for a in group:
+            for b in group:
+                if a != b:
+                    self._add(a, b, per_pair)
+
+    def weighted_all_to_all(self, group: list[int], matrix_bytes: np.ndarray) -> None:
+        """Non-uniform all-to-all (e.g. measured MoE routing), g×g bytes."""
+        for i, a in enumerate(group):
+            for j, b in enumerate(group):
+                if a != b:
+                    self._add(a, b, float(matrix_bytes[i, j]))
 
 
 def sinkhorn(D: np.ndarray, iters: int = 200, tol: float = 1e-10) -> np.ndarray:

@@ -160,7 +160,12 @@ def test_equalize_torch_out_of_slots_is_finished_on_host(monkeypatch):
     from repro.core.schedule import SwitchSchedule as RefSwitch
     from repro_torch.core.schedule import ParallelSchedule, SwitchSchedule
 
-    import repro_torch.core.torchopt.equalize_torch as eqt
+    import importlib
+
+    # The package exports the function ``equalize_torch`` under the module's
+    # name (as the reference's ``equalize_jax``), so ``import ... as`` would
+    # bind the function; take the module from ``sys.modules``.
+    eqt = importlib.import_module("repro_torch.core.torchopt.equalize_torch")
 
     host_calls = []
     real = eqt.equalize

@@ -1894,7 +1894,8 @@ def phase_solver_layer(seed: int) -> dict:
     totals: dict[str, float] = {}
     for ev in tracer.spans():
         totals[ev.name] = totals.get(ev.name, 0.0) + ev.duration * 1e3
-    check(set(totals) == {"solve_many", "bucket", "torch.dispatch", "torch.collect"}, f"spans {sorted(totals)}")
+    check(set(totals) == {"solve_many", "bucket", "torch.dispatch", "torch.collect", "e2e.decompose", "e2e.lpt",
+                          "e2e.equalize", "e2e.bound"}, f"spans {sorted(totals)}")
     trace_path = tracer.save(Path(tempfile.gettempdir()) / "repro_torch_solver_trace.json")
     tracer.reset()
     print(f"traced permutations bucket n=512 B={len(Ds)} (device_sync): wall {traced_wall:.1f} ms; span totals "

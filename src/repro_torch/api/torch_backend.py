@@ -240,7 +240,8 @@ class PendingBatch:
         list."""
         if self._reports is None:
             tracer = get_tracer()
-            with tracer.span("torch.collect", {"B": len(self)} if tracer.enabled else None):
+            with tracer.span("torch.collect", {"B": len(self)} if tracer.enabled else None,
+                             device=self._kwargs["device"]):
                 batch = _HostBatch(self._res, self._deltas, **self._kwargs)
                 device_s = time.perf_counter() - self._t0
                 B = len(self)
@@ -262,8 +263,9 @@ def dispatch_many_torch(Ds, s: int, delta, options: SolveOptions) -> PendingBatc
 
     Only the device input is float32; reports validate against the caller's
     float64 matrices. ``delta`` is a scalar or a (B,) vector. The call runs
-    inside a ``torch.dispatch`` span; with the tracer's ``device_sync`` it
-    synchronises the device inside that span, so the device time lands there.
+    inside a ``torch.dispatch`` span, which on CUDA counts its host reads;
+    with the tracer's ``device_sync`` it synchronises the device inside that
+    span, so the device time lands there.
     """
     mats = np.asarray(Ds, dtype=np.float64)
     B = mats.shape[0]
@@ -272,7 +274,8 @@ def dispatch_many_torch(Ds, s: int, delta, options: SolveOptions) -> PendingBatc
     tracer = get_tracer()
     t0 = time.perf_counter()
     with tracer.span(
-        "torch.dispatch", {"B": B, "n": int(mats.shape[-1]), "s": int(s)} if tracer.enabled else None
+        "torch.dispatch", {"B": B, "n": int(mats.shape[-1]), "s": int(s)} if tracer.enabled else None,
+        device=kwargs["device"],
     ):
         res = spectra_torch_e2e_many(
             mats.astype(np.float32), s, deltas.astype(np.float32), **kwargs

@@ -66,7 +66,8 @@ def _decompose_rounds(D: torch.Tensor, matcher: str, carry_prices: bool = False,
     With ``carry_prices`` each round's matcher starts from the previous
     round's final prices, lane by lane, and round 0 from ``prices0`` (None:
     zeros); the final prices come back as the sixth result. Without it every
-    round starts from zero prices and ``prices0`` comes back unchanged.
+    round starts from zero prices and ``prices0`` comes back unchanged. The
+    seventh result is the number of matcher calls, the loop's iterations.
     """
     match = get_matcher(matcher)
     B, n, _ = D.shape
@@ -80,11 +81,13 @@ def _decompose_rounds(D: torch.Tensor, matcher: str, carry_prices: bool = False,
     i = torch.zeros((B,), dtype=torch.int64, device=dev)
     conv = torch.ones((B,), dtype=torch.bool, device=dev)
     rounds = torch.zeros((B,), dtype=torch.int64, device=dev)
+    calls = 0
     while True:
         active = S_rem.any(dim=(1, 2)) & (i < n)
         idx = active.nonzero()[:, 0]
         if idx.numel() == 0:
             break
+        calls += 1
         Dr, Sr, ir = D_rem[idx], S_rem[idx], i[idx]
         row_deg = Sr.sum(dim=2)
         col_deg = Sr.sum(dim=1)
@@ -117,7 +120,7 @@ def _decompose_rounds(D: torch.Tensor, matcher: str, carry_prices: bool = False,
         i[idx] = ir + 1
         conv[idx] &= res.converged
         rounds[idx] += res.rounds
-    return perms, alphas, i, conv, rounds, prices
+    return perms, alphas, i, conv, rounds, prices, calls
 
 
 def _refine(D, perms, alphas, k):
@@ -165,12 +168,13 @@ def _repair(D, perms, alphas, k, repair_rounds: int):
 
 
 def _decompose(D, matcher, repair_rounds, carry_prices, prices0):
+    """The decomposition, the final prices and the number of matcher calls."""
     D = D.to(torch.float32)
-    perms, alphas, k, conv, rounds, prices = _decompose_rounds(D, matcher, carry_prices, prices0)
+    perms, alphas, k, conv, rounds, prices, calls = _decompose_rounds(D, matcher, carry_prices, prices0)
     alphas = _refine(D, perms, alphas, k)
     if repair_rounds:
         perms, alphas, k = _repair(D, perms, alphas, k, repair_rounds)
-    return TorchDecomposition(perms, alphas, k, conv, rounds), prices
+    return TorchDecomposition(perms, alphas, k, conv, rounds), prices, calls
 
 
 def decompose(
@@ -198,7 +202,7 @@ def decompose_prices(
     come back beside the decomposition for the caller to carry on. Every
     round hands the matcher prices, so ``auction_fused`` enters its ε
     schedule at the tail each round, as the reference's does."""
-    return _decompose(D, matcher, repair_rounds, True, prices0)
+    return _decompose(D, matcher, repair_rounds, True, prices0)[:2]
 
 
 def to_decomposition(dec: TorchDecomposition, lane: int = 0) -> Decomposition:

@@ -4,6 +4,14 @@ Counterpart of ``repro.core.jaxopt.e2e``: ``spectra_torch_e2e_many`` runs
 the whole SPECTRA pipeline for stacked (B, n, n) demand matrices on one
 device and returns a dense ``DeviceSchedule`` per lane. Where the reference
 ``vmap``s one instance's program, every stage here is written for the batch.
+
+Each stage runs in a span of the tracer (``obs.trace``): ``e2e.decompose``
+(the inputs' upload, Alg. 1's round loop and REFINE; arg ``rounds``, the
+matcher calls), ``e2e.lpt`` (LPT and the slot table), ``e2e.equalize`` (arg
+``iters``, the loop's iterations) and ``e2e.bound`` (the makespan reduction
+and the §IV bound). A span's host time holds the device work that its host
+reads wait for; the work enqueued after EQUALIZE's last read is waited for
+by whoever reads the result next.
 """
 
 from __future__ import annotations
@@ -13,8 +21,10 @@ from typing import NamedTuple
 import torch
 
 from ...kernels.backend import resolve_device
+from ...obs.trace import get_tracer
 from ..schedule_ir import DeviceSchedule
-from .decompose_torch import TorchDecomposition, decompose, lpt_schedule
+from . import equalize_torch
+from .decompose_torch import TorchDecomposition, _decompose, lpt_schedule
 from .equalize_torch import device_loads, equalize_ir
 from .lower_bounds_torch import lower_bound
 
@@ -58,11 +68,17 @@ def schedule_decomposition(
     """LPT then EQUALIZE of a batched decomposition; returns ``(schedule,
     lpt_makespan, eq_exhausted)``. ``extra_slots`` free slots are appended
     to the n decomposition slots as EQUALIZE's split headroom."""
-    assignment, _, lpt_makespan = lpt_schedule(dec, s, deltas)
-    ds = slot_table(dec, assignment, deltas, extra_slots)
-    eq_exhausted = torch.zeros((dec.alphas.shape[0],), dtype=torch.bool, device=dec.alphas.device)
+    tracer, dev = get_tracer(), dec.alphas.device
+    with tracer.span("e2e.lpt", device=dev):
+        assignment, _, lpt_makespan = lpt_schedule(dec, s, deltas)
+        ds = slot_table(dec, assignment, deltas, extra_slots)
+        eq_exhausted = torch.zeros((dec.alphas.shape[0],), dtype=torch.bool, device=dev)
     if do_equalize:
-        ds, eq_exhausted = equalize_ir(ds, s, merge_aware=merge_aware)
+        with tracer.span("e2e.equalize", device=dev) as sp:
+            before = equalize_torch.equalize_ir.iterations
+            ds, eq_exhausted = equalize_ir(ds, s, merge_aware=merge_aware)
+            if tracer.enabled:
+                sp.set(iters=equalize_torch.equalize_ir.iterations - before)
     return ds, lpt_makespan, eq_exhausted
 
 
@@ -86,19 +102,26 @@ def spectra_torch_e2e_many(
     bounds the post-REFINE local-search sweeps.
     """
     dev = resolve_device(device)
-    Ds = torch.as_tensor(Ds, dtype=torch.float32, device=dev)
-    B = Ds.shape[0]
-    deltas = torch.as_tensor(delta, dtype=torch.float32, device=dev).expand(B).contiguous()
-    dec = decompose(Ds, matcher=matcher, repair_rounds=repair_rounds)
+    tracer = get_tracer()
+    with tracer.span("e2e.decompose", device=dev) as sp:
+        Ds = torch.as_tensor(Ds, dtype=torch.float32, device=dev)
+        B = Ds.shape[0]
+        deltas = torch.as_tensor(delta, dtype=torch.float32, device=dev).expand(B).contiguous()
+        dec, _, calls = _decompose(Ds, matcher, repair_rounds, False, None)
+        if tracer.enabled:
+            sp.set(rounds=calls)
     ds, lpt_makespan, eq_exhausted = schedule_decomposition(
         dec, s, deltas, do_equalize=do_equalize, merge_aware=merge_aware,
         extra_slots=extra_slots,
     )
+    with tracer.span("e2e.bound", device=dev):
+        makespan = device_loads(ds.alphas, ds.switch, ds.delta, s).amax(dim=1)
+        lb = lower_bound(Ds, s, deltas)
     return E2EResult(
         schedule=ds,
         dec=dec,
-        makespan=device_loads(ds.alphas, ds.switch, ds.delta, s).amax(dim=1),
+        makespan=makespan,
         lpt_makespan=lpt_makespan,
         eq_exhausted=eq_exhausted,
-        lb=lower_bound(Ds, s, deltas),
+        lb=lb,
     )

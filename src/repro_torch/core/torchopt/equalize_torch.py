@@ -66,7 +66,8 @@ def equalize_ir(
     on each switch's effective load. ``exhausted`` (B,) is set where the slot
     table ran out of split headroom while a split was still wanted — the one
     stop the host EQUALIZE does not have. ``max_iters`` defaults to the host
-    path's ``64·(configs + s) + 64`` per lane.
+    path's ``64·(configs + s) + 64`` per lane. ``equalize_ir.iterations``
+    counts the loop's iterations over all calls, each a host read.
     """
     perms = ds.perms.clone()
     alphas = ds.alphas.to(torch.float32).clone()
@@ -135,7 +136,11 @@ def equalize_ir(
         it += active.long()
         done = done | (active & stop)
         exhausted = exhausted | (active & out_of_slots)
+        equalize_ir.iterations += 1
     return DeviceSchedule(perms, alphas, switch, delta), exhausted
+
+
+equalize_ir.iterations = 0
 
 
 def equalize_torch(

@@ -42,13 +42,12 @@ count) are read on the host, one read each, instead of running all n.
 
 from __future__ import annotations
 
-import warnings
-from contextlib import contextmanager
-from typing import Iterator, NamedTuple
+from typing import NamedTuple
 
 import torch
 
 from ...kernels.backend import resolve_device
+from ...obs.host_reads import count_host_reads
 from ..schedule_ir import DeviceSchedule
 from .decompose_torch import TorchDecomposition, _add_at, _take, decompose, decompose_prices, lpt_place
 from .e2e import slot_table
@@ -343,27 +342,6 @@ def online_step(
         rounds=dec.rounds,
     )
     return result, new_state
-
-
-@contextmanager
-def count_host_reads(device) -> Iterator[list]:
-    """Count the host reads (synchronizing CUDA operations: ``.item()``,
-    ``.tolist()``, ``nonzero``, device-to-host copies) made inside the block,
-    through ``torch.cuda.set_sync_debug_mode("warn")``. Yields a one-element
-    list filled at exit; on the CPU nothing synchronizes and it holds None."""
-    out: list = [None]
-    if torch.device(device).type != "cuda":
-        yield out
-        return
-    before = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            yield out
-    finally:
-        torch.cuda.set_sync_debug_mode(before)
-    out[0] = sum("synchroniz" in str(w.message) for w in caught)
 
 
 def spectra_online_scan(

@@ -10,12 +10,15 @@ shared metrics (the counterpart of ``repro.obs``).
   ``transmission + δ paid + idle ≡ s · makespan``.
 * ``metrics``: latency histograms, named counters and the solver-warning
   tally shared by serving and scenarios.
+* ``host_reads``: ``count_host_reads``, the count of synchronizing CUDA
+  reads in a block; the tracer's spans on a CUDA device carry it.
 
 ``python -m repro_torch.obs.dashboard <scenario>`` renders the terminal
 timeline; ``--html`` / ``--trace`` write the HTML report and the Chrome
 trace.
 """
 
+from .host_reads import count_host_reads
 from .metrics import (
     STAGES,
     Counters,
@@ -70,6 +73,7 @@ __all__ = [
     "TimelineTable",
     "Tracer",
     "attribute_scenario",
+    "count_host_reads",
     "get_tracer",
     "span",
     "timeline_table",

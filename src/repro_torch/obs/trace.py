@@ -16,9 +16,9 @@ Cost discipline — the tracer is wired into hot paths, so:
   dicts guard on ``tracer.enabled`` (or pass ``args`` only when cheap) so
   the disabled path stays allocation-free end to end.
 * **Enabled**, each span costs two ``perf_counter`` reads, one small
-  object, and one list append. Spans nest via a per-thread stack; every
-  finished span records its parent, so containment invariants
-  (child ⊆ parent interval) are checkable directly.
+  object, one list append and a check whether a profiler records. Spans
+  nest via a per-thread stack; every finished span records its parent, so
+  containment invariants (child ⊆ parent interval) are checkable directly.
 
 Export is the Chrome trace-event JSON format (``ph: "X"`` complete
 events, microsecond timestamps) — load the file in Perfetto
@@ -27,6 +27,17 @@ a flame chart. ``device_sync=True`` asks the device wiring to call
 ``torch.cuda.synchronize()`` *inside* its dispatch spans so device time
 lands in the span that launched it (off by default: it serializes the
 async pipeline).
+
+Two additions to the reference's tracer, both only while it is enabled:
+
+* While a ``torch.profiler`` session records, every span also opens a
+  ``record_function`` range of its name, so the spans land in the
+  profiler's trace as ``user_annotation`` events on the device timeline's
+  clock, and an idle gap of the card can be put down to the span the host
+  was in.
+* A span given a CUDA ``device`` counts the host reads made while it is
+  open (``obs.host_reads.count_host_reads``) into its arg ``host_reads``.
+  Counts nest: a span's count holds its children's.
 """
 
 from __future__ import annotations
@@ -36,6 +47,10 @@ import threading
 import time
 from pathlib import Path
 from typing import Any, Mapping
+
+import torch
+
+from .host_reads import count_host_reads
 
 __all__ = ["SpanEvent", "Tracer", "get_tracer", "span"]
 
@@ -119,6 +134,7 @@ class Tracer:
         self.events: list[SpanEvent] = []
         self._t0 = time.perf_counter()
         self._local = threading.local()
+        self._hooks: dict[int, tuple] = {}  # open span -> (profiler range, read count)
 
     # ----------------------------------------------------------- control
     def enable(self, *, device_sync: bool | None = None) -> None:
@@ -134,6 +150,7 @@ class Tracer:
         self.events = []
         self._t0 = time.perf_counter()
         self._local = threading.local()
+        self._hooks = {}
 
     # --------------------------------------------------------- recording
     def _stack(self) -> list[int]:
@@ -144,13 +161,14 @@ class Tracer:
             self._local.stack = stack
             return stack
 
-    def span(self, name: str, args: Mapping[str, Any] | None = None):
+    def span(self, name: str, args: Mapping[str, Any] | None = None, *, device=None):
         """Context manager timing one nested span.
 
         ``args`` (an optional mapping) lands in the exported event's
         ``args`` field. When the tracer is disabled this returns a shared
         no-op singleton — build arg dicts only under ``tracer.enabled``
-        if the call site is hot.
+        if the call site is hot. On a CUDA ``device`` the span's arg
+        ``host_reads`` counts the host reads made while it is open.
         """
         if not self.enabled:
             return _NULL_SPAN
@@ -166,18 +184,40 @@ class Tracer:
         index = len(self.events)
         self.events.append(ev)
         stack.append(index)
+        reads = count = annotation = None
+        if device is not None and torch.device(device).type == "cuda":
+            reads = count_host_reads(device)
+            count = reads.__enter__()
+        if torch._C._autograd._profiler_enabled():
+            annotation = torch.profiler.record_function(name)
+            annotation.__enter__()
+        if reads is not None or annotation is not None:
+            self._hooks[index] = (annotation, reads, count)
         return _LiveSpan(self, index)
 
     def _close(self, index: int) -> None:
-        self.events[index].end = time.perf_counter()
+        end = time.perf_counter()
         stack = self._stack()
         # The span being closed is the stack top in well-nested use; pop
         # down to it so an exception skipping inner __exit__s can't wedge
         # the stack (children left open are closed with their parent's end).
         while stack and stack[-1] >= index:
             j = stack.pop()
+            hooks = self._hooks.pop(j, None)
+            if hooks is not None:
+                self._unhook(j, *hooks)
             if self.events[j].end is None:
-                self.events[j].end = self.events[index].end
+                self.events[j].end = end
+
+    def _unhook(self, index: int, annotation, reads, count) -> None:
+        """Close a span's profiler range and host-read count, innermost
+        first; the count lands in the span's arg ``host_reads``."""
+        if annotation is not None:
+            annotation.__exit__(None, None, None)
+        if reads is not None:
+            reads.__exit__(None, None, None)
+            ev = self.events[index]
+            ev.args = {**(ev.args or {}), "host_reads": count[0]}
 
     def instant(self, name: str, args: Mapping[str, Any] | None = None) -> None:
         """Point-in-time marker (Chrome ``ph: "i"`` instant event)."""

@@ -12,6 +12,7 @@ a callable and the legacy kwargs.
 """
 
 import json
+import warnings
 
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from repro.fabric.timeline import build_timeline as ref_build_timeline  # noqa: 
 from repro_torch.core.spectra import spectra  # noqa: E402
 from repro_torch.fabric import OCSFabric, build_timeline, simulate  # noqa: E402
 from repro_torch.obs import Tracer, get_tracer  # noqa: E402
+from repro_torch.obs.host_reads import count_host_reads  # noqa: E402
 from repro_torch.traffic import gpt3b_workload, moe_workload  # noqa: E402
 
 CPU = api.SolveOptions(extra={"device": "cpu"})
@@ -137,22 +139,141 @@ def test_pipeline_and_host_solve_many_emit_the_reference_spans(traced):
     assert {e.name for e in mine.spans()} == {"solve_many", "decompose", "matcher", "schedule", "equalize"}
 
 
+STAGES = ["e2e.decompose", "e2e.lpt", "e2e.equalize", "e2e.bound"]
+
+
 def test_device_solve_many_emits_the_reference_spans_under_torch_names(traced):
     mine, ref = traced
     Ds = np.random.default_rng(2).random((2, 6, 6))
     api.solve_many(Ds, 2, 0.01, options=CPU)
     ref_api.solve_many(Ds, 2, 0.01, solver="spectra_jax")
     want = [(n.replace("jax.", "torch."), p) for n, p in _shape(ref.spans())]
-    assert _shape(mine.spans()) == want == [
+    # The port's fused solve adds its stage spans under torch.dispatch.
+    shape = _shape(mine.spans())
+    assert [x for x in shape if not x[0].startswith("e2e.")] == want == [
         ("solve_many", None), ("bucket", "solve_many"), ("torch.dispatch", "bucket"), ("torch.collect", "bucket"),
     ]
+    assert [x for x in shape if x[0].startswith("e2e.")] == [(name, "torch.dispatch") for name in STAGES]
     ref_args = [{k: ("spectra_torch" if v == "spectra_jax" else v) for k, v in e.args.items()} for e in ref.spans()]
-    assert [e.args for e in mine.spans()] == ref_args
+    assert [e.args for e in mine.spans() if not e.name.startswith("e2e.")] == ref_args
     mine.reset()
     api.Pipeline(decompose="torch_auction", equalize="torch")(api.Problem(Ds[0], 2, 0.01), CPU)
     assert [(e.name, e.args) for e in mine.spans() if e.parent is None] == [
         ("decompose", {"impl": "torch_auction"}), ("schedule", {"impl": "lpt"}), ("equalize", {"impl": "torch"}),
     ]
+
+
+@pytest.mark.parametrize("equalize", [True, False])
+def test_fused_solve_stage_spans_tile_the_dispatch_in_order(traced, equalize):
+    mine, _ = traced
+    Ds = np.random.default_rng(4).random((3, 7, 7)) * (np.random.default_rng(5).random((3, 7, 7)) < 0.5)
+    options = api.SolveOptions(extra={"device": "cpu", "equalize": equalize})
+    reports = api.solve_many(Ds, 2, 0.01, options=options)
+    spans = mine.spans()
+    (dispatch,) = [e for e in spans if e.name == "torch.dispatch"]
+    at = spans.index(dispatch)
+    stages = [e for e in spans if e.parent == at]
+    assert [e.name for e in stages] == [n for n in STAGES if equalize or n != "e2e.equalize"]
+    assert not any(e.name.startswith("e2e.") and e.parent != at for e in spans)
+    for a, b in zip(stages, stages[1:]):
+        assert a.end <= b.start
+    assert dispatch.start <= stages[0].start and stages[-1].end <= dispatch.end
+    assert sum(e.duration for e in stages) <= dispatch.duration
+    dec = stages[0]
+    assert dec.args == {"rounds": max(r.extras["k"] for r in reports)}
+    if equalize:
+        assert stages[2].args["iters"] >= 1 and set(stages[2].args) == {"iters"}
+    # Nothing synchronizes on the CPU: no span carries a host-read count.
+    assert not any("host_reads" in (e.args or {}) for e in spans)
+
+
+def _annotations(path):
+    events = json.loads(path.read_text())["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "user_annotation"]
+
+
+def test_spans_land_in_the_profiler_trace_as_user_annotations(tmp_path):
+    t = get_tracer()
+    Ds = np.random.default_rng(6).random((2, 5, 5))
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    try:
+        t.reset()
+        t.enable()
+        with torch.profiler.profile(activities=acts) as prof:
+            api.solve_many(Ds, 2, 0.01, options=CPU)
+        prof.export_chrome_trace(str(tmp_path / "on.json"))
+        names = [e.name for e in t.spans()]
+        assert set(STAGES) < set(names)
+        got = _annotations(tmp_path / "on.json")
+        assert sorted(n for n in got if n in set(names)) == sorted(names)
+        t.disable()
+        t.reset()
+        with torch.profiler.profile(activities=acts) as prof:
+            api.solve_many(Ds, 2, 0.01, options=CPU)
+            assert t.span("e2e.decompose", device="cpu") is trace._NULL_SPAN
+        prof.export_chrome_trace(str(tmp_path / "off.json"))
+        assert not set(_annotations(tmp_path / "off.json")) & set(names)
+        assert t.events == []
+    finally:
+        t.disable()
+        t.reset()
+    # A span opened with no profiler recording opens no range.
+    mine = Tracer(enabled=True)
+    with mine.span("alone"):
+        assert not mine._hooks
+
+
+def _stand_in_card(monkeypatch):
+    """The sync-debug mode's switch, with a warning standing in for a read."""
+    modes = ["default"]
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", lambda: modes[-1])
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", modes.append)
+    return modes
+
+
+def _read(n=1):
+    for _ in range(n):
+        warnings.warn("called a synchronizing CUDA operation", UserWarning, stacklevel=2)
+
+
+def test_count_host_reads_nests_and_restores_the_mode(monkeypatch):
+    modes = _stand_in_card(monkeypatch)
+    with count_host_reads("cpu") as cpu:
+        _read()
+    assert cpu == [None]
+    with pytest.warns(UserWarning, match="not a read"):
+        with count_host_reads("cuda") as outer:
+            _read(2)
+            with count_host_reads("cuda") as inner:
+                _read(3)
+                warnings.warn("not a read")
+            with count_host_reads(torch.device("cuda", 0)) as second:
+                pass
+            _read()
+    assert (outer, inner, second) == ([6], [3], [0])
+    assert modes == ["default", "warn", "default"]
+    with count_host_reads("cuda") as again:
+        _read()
+    assert again == [1] and modes[-1] == "default"
+
+
+def test_span_on_a_card_carries_its_host_reads(monkeypatch):
+    _stand_in_card(monkeypatch)
+    t = Tracer(enabled=True)
+    with t.span("torch.dispatch", {"B": 1}, device="cuda"):
+        _read()
+        for k in (2, 0):
+            with t.span("stage", device="cuda"):
+                _read(k)
+        with t.span("untracked"):
+            _read()
+    with t.span("on the cpu", device="cpu"):
+        _read()
+    assert [(e.name, e.args) for e in t.spans()] == [
+        ("torch.dispatch", {"B": 1, "host_reads": 4}), ("stage", {"host_reads": 2}), ("stage", {"host_reads": 0}),
+        ("untracked", None), ("on the cpu", None),
+    ]
+    assert not t._hooks
 
 
 # ----------------------------------------------------------------- fabric

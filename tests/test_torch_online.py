@@ -36,12 +36,12 @@ from repro_torch.core.schedule_ir import DeviceSchedule  # noqa: E402
 from repro_torch.core.torchopt.decompose_torch import decompose, decompose_prices  # noqa: E402
 from repro_torch.core.torchopt.online_torch import (  # noqa: E402
     OnlineDeviceState,
-    count_host_reads,
     online_initial_state,
     online_step,
     spectra_online_scan,
 )
 from repro_torch.kernels.auction_bid import auction_round_loop, auction_rounds, auction_rounds_ref  # noqa: E402
+from repro_torch.obs.host_reads import count_host_reads  # noqa: E402
 
 CPU = "cpu"
 

@@ -8,6 +8,8 @@
    the op, with 16- and 4-byte loads; ``auction_rounds``, a whole matcher
    call in one launch, on the solver workloads' weights and on tie-rich
    ones, forward and forward-reverse, with the round budget cut too;
+   ``decompose_rounds``, DECOMPOSE's whole round loop in one launch, against
+   the host loop of ``auction_rounds`` calls on moe's (16, 64, 64);
    ``auction_fused`` on the kernel the wrapper picks (16-CTA
    clusters for up to four lanes where W fits, else one block a lane), and
    the one-block and 8-CTA kernels at n = 512; ``polish_2swap``, the fused
@@ -30,8 +32,9 @@
    then one timed run of each bucket with the kernels' launch counters set
    to 0 just before it. Every report must validate (Eq. 3 at 1e-4),
    converge, respect its §IV lower bound and finish EQUALIZE on the device;
-   gpt, moe and benchmark must launch ``auction_rounds`` and no
-   ``masked_row_top2`` (no round-by-round loop), permutations only the
+   gpt, moe and benchmark must launch ``decompose_rounds`` and neither
+   ``auction_rounds`` nor ``masked_row_top2`` (no host round loop),
+   permutations only the
    cluster ``auction_fused`` kernel, each call with one ``polish_2swap``;
    the gpt bucket must also agree with the
    port's plain CPU path to 1e-4. One more run of the permutations bucket
@@ -40,14 +43,14 @@
    Then the matcher registry and the default-matcher policy
    (``phase_matcher_api``) on the gpt and moe buckets, the counters set to 0
    before each call: ``"auction2"`` (``match_auction`` registered again)
-   equal to ``"auction"`` bit for bit with the same ``auction_rounds``
+   equal to ``"auction"`` bit for bit with the same ``decompose_rounds``
    launches; under ``set_default_matcher_policy(lambda n: "auction_fused")``
    with no matcher named, reports naming ``auction_fused``, its launches and
-   no ``auction_rounds``, makespans equal to the call naming it to 1e-4 (and
+   no n ≤ 128 round kernel, makespans equal to the call naming it to 1e-4 (and
    whether bit-equal); ``run_scenario("gpt", solver="spectra_torch",
    online=True)`` launching it, its online/stateless equal to the named
    run's to 1e-4; a ``SolverService`` flush reporting it; after
-   ``set_default_matcher_policy(None)``, ``auction_rounds`` on gpt again.
+   ``set_default_matcher_policy(None)``, ``decompose_rounds`` on gpt again.
    The policy and the registration are undone however the phase ends.
    Then the solver layer. ``match_auction`` / ``match_auction_fr`` above
    n = 128 (the round loop, one ``masked_row_top2`` launch a round) at
@@ -121,8 +124,8 @@
    and permutations_large again with ``warm_prices=True``, each with the
    counters set to 0 just before it: every online period at most its
    stateless one and replayed to ``demand_met`` from the carried state,
-   reuse and δ avoided on gpt and moe, ``auction_rounds`` launched with
-   ``prices0`` and ``auction_fused`` entered at the tail of its ε schedule
+   reuse and δ avoided on gpt and moe, ``decompose_rounds`` launched (the
+   prices carried inside it) and ``auction_fused`` entered at the tail of its ε schedule
    on the warm runs, no ``masked_row_top2``. Every run passes
    ``attribution_summary()`` (the identity at 1e-4) and
    ``warning_counters()`` (no warnings); every period's flow replay
@@ -149,7 +152,7 @@
    loop of ``mixed_profile(n_small=32, n_large=64)`` at half the rate async
    sustained, with a schedule cache and admission control (nothing shed);
    a ``SessionManager`` on ``spectra_online_torch`` with two tenants whose
-   decisions equal the CPU child's. It must launch ``auction_rounds`` and no
+   decisions equal the CPU child's. It must launch ``decompose_rounds`` and no
    ``masked_row_top2``. Prints the walls and their ratio, schedules/s, the
    cache hit rate, queue-wait / device / e2e p50 and p99, and one
    ``{"serving": ...}`` line.
@@ -189,7 +192,7 @@
    printed: ``bench.runtime`` (the §V-A table: host ``spectra`` mean / p95
    and ``spectra_torch`` ms a matrix at B = 16 on gpt, moe, benchmark, at
    B = 2 on benchmark_large n = 256 and permutations_large n = 512, with the
-   device/host makespan; every row finite, ``auction_rounds`` and
+   device/host makespan; every row finite, ``decompose_rounds`` and
    ``auction_fused`` launched); ``bench.serve`` with its gates (async/sync ≥
    1.2 beside the ideal ratio and a batch's solve time, hit rate ≥ 0.70, ≥ 10
    schedules/s, e2e p99 ≤ 2 s, the overload shedding within its bound with
@@ -417,6 +420,58 @@ def phase_rounds(rng) -> dict:
           f"gpt/moe/benchmark bonus weights and tie-rich, forward and forward-reverse, max_iters full and 5")
     timed["max_abs_err"] = max_err
     return timed
+
+
+def phase_decompose(rng) -> dict:
+    """decompose_rounds (DECOMPOSE's whole round loop in one launch) on moe's
+    (16, 64, 64), forward-reverse as the moe bucket runs it, cold and with
+    carried prices: bit for bit against its plain version
+    (``decompose_rounds_ref`` on the same card tensors) and against the host
+    loop of auction_rounds launches it replaces (perms, alphas, k, converged,
+    rounds, prices). Then one DECOMPOSE's times: the kernel and the host loop
+    by CUDA events, the plain version by the host clock, and the bound from
+    the function's own traffic (D and T in; perms, alphas, k, converged,
+    rounds and prices out) and a floor on its operations (one row's bid
+    scan, 2n, a bidding round and one pass over the n x n weights a matcher
+    call)."""
+    from repro_torch.core.torchopt.matching import default_max_iters, default_num_phases, eps_table, match_auction_fr
+    from repro_torch.kernels.auction_bid import decompose_round_loop, decompose_rounds, decompose_rounds_ref
+    from repro_torch.traffic import moe_workload
+
+    B, n = 16, 64
+    Ds = [moe_workload(n=n, rng=np.random.default_rng(int(rng.integers(1 << 31)))) for _ in range(B)]
+    D = torch.tensor(np.stack([d / max(d.sum(0).max(), d.sum(1).max()) for d in Ds]), dtype=torch.float32,
+                     device="cuda")
+    T, mi = eps_table(default_num_phases(n), "cuda"), default_max_iters(n)
+    p0 = torch.rand((B, n), generator=torch.Generator().manual_seed(int(rng.integers(1 << 31)))).cuda()
+    names = ("perms", "alphas", "k", "converged", "rounds", "prices")
+    max_err, plain_ms = 0.0, None
+    for carry, prices0 in ((False, None), (True, p0)):
+        got = decompose_rounds(D, T, mi, reverse=True, carry=carry, prices0=prices0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = decompose_rounds_ref(D, T, mi, reverse=True, carry=carry, prices0=prices0)
+        torch.cuda.synchronize()
+        if not carry:
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        loop = decompose_round_loop(D, match_auction_fr, carry, prices0)
+        for name, g, w, h in zip(names, got, plain, loop):
+            check(torch.equal(g, w), f"decompose_rounds {name} carry={carry} differs from its plain version")
+            check(torch.equal(g, h), f"decompose_rounds {name} carry={carry} differs from the host loop")
+            if g.is_floating_point():
+                max_err = max(max_err, float((g - w).abs().max()))
+    got = decompose_rounds(D, T, mi, reverse=True, carry=False)
+    ms = cuda_ms(lambda: decompose_rounds(D, T, mi, reverse=True, carry=False), 5)
+    loop_ms = cuda_ms(lambda: decompose_round_loop(D, match_auction_fr), 3)
+    k, rounds = got[2], got[4]
+    nbytes = 4.0 * (B * n * n + T.shape[0]) + 8.0 * B * n * n + 4.0 * 2 * B * n + (8 + 1 + 8) * B
+    b_ms, b_by = bound(nbytes, 2.0 * n * float(rounds.sum()) + float(n * n) * float(k.sum()))
+    print(f"decompose_rounds moe B={B} n={n} forward-reverse: kernel == plain version == host loop exactly, cold "
+          f"and carried; kernel {ms:.2f} ms ({ms * 1e3 / int(k.max()):.1f} us a round of the longest lane), plain "
+          f"version {plain_ms:.1f} ms, host loop of auction_rounds launches {loop_ms:.2f} ms, bound "
+          f"{b_ms * 1e3:.2f} us ({b_by}); k {k.tolist()}")
+    return dict(shape=[B, n, n], reverse=True, ms=ms, plain_ms=plain_ms, loop_ms=loop_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=max_err, k=k.tolist(), rounds=rounds.tolist())
 
 
 def phase_fused(rng) -> dict:
@@ -1498,24 +1553,25 @@ def fused_split(Ds) -> tuple[float, float, int]:
 
 def phase_main_path(seed: int) -> dict:
     from repro_torch.api import SolveOptions, solve_many
-    from repro_torch.kernels.auction_bid import auction_rounds, masked_row_top2
+    from repro_torch.kernels.auction_bid import auction_rounds, decompose_rounds, masked_row_top2
     from repro_torch.kernels.auction_fused import fused_auction, polish_2swap
 
-    launches = {"auction_bid": 0, "auction_rounds": 0, "auction_fused": 0, "auction_fused_cluster": 0,
-                "polish_2swap": 0}
+    launches = {"auction_bid": 0, "auction_rounds": 0, "decompose_rounds": 0, "auction_fused": 0,
+                "auction_fused_cluster": 0, "polish_2swap": 0}
     for i, (name, matcher, Ds) in enumerate(buckets(seed)):
         if i == 0:
             solve_many(Ds, 4, 0.01, solver="spectra_torch")  # warm-up (first use of every piece)
-        masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = polish_2swap.launches = 0
-        fused_auction.cluster_launches = 0
+        zero_auction_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reports = solve_many(Ds, 4, 0.01, solver="spectra_torch")
         wall_ms = (time.perf_counter() - t0) * 1e3
         bid, rounds_l, fused = masked_row_top2.launches, auction_rounds.launches, fused_auction.launches
+        dec_l = decompose_rounds.launches
         cluster = fused_auction.cluster_launches
         launches["auction_bid"] += bid
         launches["auction_rounds"] += rounds_l
+        launches["decompose_rounds"] += dec_l
         launches["auction_fused"] += fused
         launches["auction_fused_cluster"] += cluster
         launches["polish_2swap"] += polish_2swap.launches
@@ -1526,20 +1582,20 @@ def phase_main_path(seed: int) -> dict:
             check(not rep.extras["eq_exhausted"], f"{name}[{b}] EQUALIZE ran out of slots")
             check(np.isfinite(rep.makespan) and rep.makespan >= rep.lower_bound * (1 - 1e-6),
                   f"{name}[{b}] makespan {rep.makespan} below its lower bound {rep.lower_bound}")
-        got = (bid, rounds_l, fused)
+        got = (bid, rounds_l, dec_l, fused)
         if matcher == "auction_fused":
-            check(fused > 0 and cluster == fused and bid == 0 and rounds_l == 0
+            check(fused > 0 and cluster == fused and bid == 0 and rounds_l == 0 and dec_l == 0
                   and polish_2swap.launches == fused,
                   f"{name}: expected launches of the cluster auction_fused kernel only, each with one polish_2swap, "
-                  f"got bid/rounds/fused {got}, of which cluster {cluster}, polish {polish_2swap.launches}")
+                  f"got bid/rounds/decompose/fused {got}, of which cluster {cluster}, polish {polish_2swap.launches}")
         else:
-            check(rounds_l > 0 and bid == 0 and fused == 0, f"{name}: expected auction_rounds launches only, got "
-                                                            f"bid/rounds/fused {got}")
+            check(dec_l > 0 and rounds_l == 0 and bid == 0 and fused == 0,
+                  f"{name}: expected decompose_rounds launches only, got bid/rounds/decompose/fused {got}")
         rounds = sum(r.extras["bidding_rounds"] for r in reports)
         ratio = float(np.mean([r.makespan / r.lower_bound for r in reports]))
         print(f"bucket {name} B={len(Ds)} n={Ds.shape[-1]} matcher={matcher}: wall {wall_ms:.1f} ms, "
-              f"bidding rounds {rounds}, launches bid={bid} rounds={rounds_l} fused={fused} (cluster kernel "
-              f"{cluster}), mean makespan/LB {ratio:.4f}")
+              f"bidding rounds {rounds}, launches bid={bid} rounds={rounds_l} decompose={dec_l} fused={fused} "
+              f"(cluster kernel {cluster}), mean makespan/LB {ratio:.4f}")
         if matcher == "auction_fused":
             split_wall, split_fused, calls = fused_split(Ds)
             print(f"bucket {name}, one more run split by CUDA events: wall {split_wall:.1f} ms, auction_fused "
@@ -1569,14 +1625,15 @@ def phase_matcher_api(seed: int) -> tuple[dict, dict]:
     """The matcher registry and the default-matcher policy on the card, on the
     gpt (n = 32) and moe (n = 64) buckets at B = 8. ``"auction2"``, registered
     as ``match_auction``, must equal ``"auction"`` bit for bit with the same
-    ``auction_rounds`` launches. Under ``set_default_matcher_policy(lambda n:
-    "auction_fused")`` with no matcher named: ``solve_many`` reports
-    ``auction_fused``, launches it and no ``auction_rounds``, and agrees with
+    ``decompose_rounds`` launches (the same function: the one-launch loop).
+    Under ``set_default_matcher_policy(lambda n: "auction_fused")`` with no
+    matcher named: ``solve_many`` reports ``auction_fused``, launches it and
+    no n ≤ 128 round kernel, and agrees with
     the same call naming the matcher to 1e-4; ``run_scenario("gpt", ...,
     online=True)`` launches it and its online/stateless equals the run naming
     the matcher to 1e-4; a ``SolverService`` flush reports it. After
     ``set_default_matcher_policy(None)`` the gpt bucket launches
-    ``auction_rounds`` again. Returns the phase's launches (counters set to 0
+    ``decompose_rounds`` again. Returns the phase's launches (counters set to 0
     before each call and summed after it) and the printed numbers."""
     from repro_torch.api import SolveOptions, solve_many
     from repro_torch.core.torchopt import MATCHERS, match_auction, register_matcher, set_default_matcher_policy
@@ -1607,10 +1664,11 @@ def phase_matcher_api(seed: int) -> tuple[dict, dict]:
             same = _bit_equal(a, b)
             check(same and all(r.extras["matcher"] == "auction2" for r in b),
                   f"matcher_api {name}: auction2 differs from auction")
-            check(la["auction_rounds"] > 0 and la == lb, f"matcher_api {name}: launches auction {la}, auction2 {lb}")
-            info["registered"][name] = dict(bit_equal=same, auction_rounds=lb["auction_rounds"])
-            print(f"matcher_api {name}: auction2 equals auction bit for bit: {same}; auction_rounds launches "
-                  f"{la['auction_rounds']} and {lb['auction_rounds']}")
+            check(la["decompose_rounds"] > 0 and la == lb,
+                  f"matcher_api {name}: launches auction {la}, auction2 {lb}")
+            info["registered"][name] = dict(bit_equal=same, decompose_rounds=lb["decompose_rounds"])
+            print(f"matcher_api {name}: auction2 equals auction bit for bit: {same}; decompose_rounds launches "
+                  f"{la['decompose_rounds']} and {lb['decompose_rounds']}")
 
         set_default_matcher_policy(lambda n: "auction_fused")
         for name, Ds in picked.items():
@@ -1618,7 +1676,7 @@ def phase_matcher_api(seed: int) -> tuple[dict, dict]:
             named, _ = solve(Ds, "auction_fused")
             check(all(r.extras["matcher"] == "auction_fused" and r.validated and r.extras["converged"] for r in got),
                   f"matcher_api {name}: under the policy the reports read {[r.extras['matcher'] for r in got]}")
-            check(lp["auction_fused"] > 0 and lp["auction_rounds"] == 0 and lp["auction_bid"] == 0,
+            check(lp["auction_fused"] > 0 and round_kernels(lp) == 0 and lp["auction_bid"] == 0,
                   f"matcher_api {name}: launches under the policy {lp}")
             rel = max(abs(g.makespan - w.makespan) / w.makespan for g, w in zip(got, named))
             check(rel <= 1e-4, f"matcher_api {name}: policy vs named auction_fused makespans differ by {rel}")
@@ -1630,7 +1688,7 @@ def phase_matcher_api(seed: int) -> tuple[dict, dict]:
                   f"matcher named: max relative difference {rel:.3g}, bit-equal: {same}")
 
         rep, ls = drive(lambda: run_scenario("gpt", solver="spectra_torch", online=True))
-        check(ls["auction_fused"] > 0 and ls["auction_rounds"] == 0,
+        check(ls["auction_fused"] > 0 and round_kernels(ls) == 0,
               f"matcher_api: run_scenario under the policy launched {ls}")
         ref, _ = drive(lambda: run_scenario("gpt", solver="spectra_torch", online=True,
                                             options=SolveOptions(extra={"matcher": "auction_fused"})))
@@ -1653,15 +1711,15 @@ def phase_matcher_api(seed: int) -> tuple[dict, dict]:
 
         set_default_matcher_policy(None)
         after, lr = solve(picked["gpt"])
-        check(all(r.extras["matcher"] == "auction" for r in after) and lr["auction_rounds"] > 0
+        check(all(r.extras["matcher"] == "auction" for r in after) and lr["decompose_rounds"] > 0
               and lr["auction_fused"] == 0, f"matcher_api: after the reset the gpt bucket launched {lr}")
-        info["reset_auction_rounds"] = lr["auction_rounds"]
+        info["reset_decompose_rounds"] = lr["decompose_rounds"]
     finally:
         set_default_matcher_policy(None)
         MATCHERS.pop("auction2", None)
     info["seconds"] = time.perf_counter() - t0
-    print(f"matcher_api: service flush reports auction_fused; after the reset auction_rounds launches "
-          f"{lr['auction_rounds']}; {info['seconds']:.1f} s")
+    print(f"matcher_api: service flush reports auction_fused; after the reset decompose_rounds launches "
+          f"{lr['decompose_rounds']}; {info['seconds']:.1f} s")
     return total, info
 
 
@@ -1762,7 +1820,7 @@ def phase_solver_layer(seed: int) -> dict:
     from repro_torch.core.lower_bounds import lower_bound
     from repro_torch.fabric import simulate
     from repro_torch.kernels.auction_bid import auction_rounds, masked_row_top2
-    from repro_torch.kernels.auction_fused import fused_auction, polish_2swap
+    from repro_torch.kernels.auction_fused import fused_auction
     from repro_torch.obs import get_tracer
     from repro_torch.traffic import benchmark_workload, gpt3b_workload, moe_workload, permutations_workload
 
@@ -1779,8 +1837,7 @@ def phase_solver_layer(seed: int) -> dict:
     register_stage("decompose", "torch_auction_cpu_once", memo_decompose, overwrite=True)
     cpu_pipe = Pipeline(decompose="torch_auction_cpu_once", equalize="torch")
 
-    masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = polish_2swap.launches = 0
-    fused_auction.cluster_launches = 0
+    zero_auction_counters()
     t_phase = time.perf_counter()
 
     t0 = time.perf_counter()
@@ -1901,11 +1958,9 @@ def phase_solver_layer(seed: int) -> dict:
     print(f"traced permutations bucket n=512 B={len(Ds)} (device_sync): wall {traced_wall:.1f} ms; span totals "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in totals.items()) + f"; Chrome trace {trace_path}")
 
-    launches = {"auction_bid": masked_row_top2.launches, "auction_rounds": auction_rounds.launches,
-                "auction_fused": fused_auction.launches, "polish_2swap": polish_2swap.launches,
-                "auction_fused_cluster": fused_auction.cluster_launches}
-    check(all(launches[k] > 0 for k in ("auction_bid", "auction_rounds", "auction_fused", "polish_2swap")),
-          f"solver layer launches {launches}")
+    launches = auction_counters()
+    check(all(launches[k] > 0 for k in ("auction_bid", "auction_rounds", "decompose_rounds", "auction_fused",
+                                        "polish_2swap")), f"solver layer launches {launches}")
     print(f"solver layer: {time.perf_counter() - t_phase:.1f} s; launches {launches}")
     return dict(launches=launches, ratios=ratios, walls_s=walls, worst_rel=worst, wall256_ms=wall256,
                 wall512_ms=wall512, traced_wall_ms=traced_wall, span_ms=totals)
@@ -2013,8 +2068,8 @@ def phase_online(rng, cpu_child, cpu_path: str) -> dict:
        run and read just after. Every online period must be at most its
        stateless period and replay to ``demand_met`` from the carried state;
        gpt and moe must reuse configurations and avoid δ; the warm runs must
-       launch ``auction_rounds`` with ``prices0`` and enter
-       ``auction_fused``'s ε schedule at its tail. Every run must pass
+       launch ``decompose_rounds`` (moe: the prices carried inside it) and
+       enter ``auction_fused``'s ε schedule at its tail. Every run must pass
        ``attribution_summary()`` (the identity at 1e-4 on every period of
        both passes) with no solver warnings, and every period's flow replay
        must deliver every flow in full (per flow and in aggregate, to 1e-4)
@@ -2036,8 +2091,7 @@ def phase_online(rng, cpu_child, cpu_path: str) -> dict:
     from repro_torch.core.torchopt.matching import (_eps_schedule, default_max_iters, default_num_phases,
                                                     match_auction_fused)
     from repro_torch.fabric import simulate
-    from repro_torch.kernels.auction_bid import auction_rounds, auction_rounds_ref, masked_row_top2
-    from repro_torch.kernels.auction_fused import fused_auction, polish_2swap
+    from repro_torch.kernels.auction_bid import auction_rounds, auction_rounds_ref, decompose_rounds
     from repro_torch.scenarios import get_scenario, run_scenario
     from repro_torch.traffic import benchmark_workload, gpt3b_workload, moe_workload
 
@@ -2090,24 +2144,23 @@ def phase_online(rng, cpu_child, cpu_path: str) -> dict:
 
     online_torch.spectra_online_scan = capture
     flowsim.simulate_flows = timed_flows
-    launches = {"auction_bid": 0, "auction_rounds": 0, "auction_fused": 0, "auction_fused_cluster": 0,
-                "polish_2swap": 0, "auction_rounds_warm": 0, "auction_fused_warm_entries": 0}
+    launches = {"auction_bid": 0, "auction_rounds": 0, "decompose_rounds": 0, "auction_fused": 0,
+                "auction_fused_cluster": 0, "polish_2swap": 0, "auction_rounds_warm": 0,
+                "decompose_rounds_warm": 0, "auction_fused_warm_entries": 0}
     rows = {}
     try:
         for name, warm_prices in [(n, False) for n in ONLINE_SCENARIOS] + [("moe", True), ("permutations_large", True)]:
             spec = get_scenario(name).spec
             opts = SolveOptions(extra={"count_host_reads": True, "warm_prices": warm_prices})
-            masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = polish_2swap.launches = 0
-            fused_auction.cluster_launches = auction_rounds.warm_launches = match_auction_fused.warm_entries = 0
+            zero_auction_counters()
+            auction_rounds.warm_launches = decompose_rounds.warm_launches = match_auction_fused.warm_entries = 0
             torch.cuda.synchronize()
             flow_s.clear()
             t0 = time.perf_counter()
             rep = run_scenario(name, solver="spectra_torch", online=True, simulate=True, flowsim=True, options=opts)
             wall = time.perf_counter() - t0
-            got = {"auction_bid": masked_row_top2.launches, "auction_rounds": auction_rounds.launches,
-                   "auction_fused": fused_auction.launches, "polish_2swap": polish_2swap.launches,
-                   "auction_fused_cluster": fused_auction.cluster_launches,
-                   "auction_rounds_warm": auction_rounds.warm_launches,
+            got = {**auction_counters(), "auction_rounds_warm": auction_rounds.warm_launches,
+                   "decompose_rounds_warm": decompose_rounds.warm_launches,
                    "auction_fused_warm_entries": match_auction_fused.warm_entries}
             for k, v in got.items():
                 launches[k] += v
@@ -2125,9 +2178,11 @@ def phase_online(rng, cpu_child, cpu_path: str) -> dict:
                 check(rep.total_reuse > 0 and rep.total_delta_avoided > 0,
                       f"{name}: reuse {rep.total_reuse}, δ avoided {rep.total_delta_avoided}")
             if warm_prices:
-                key = "auction_rounds_warm" if name == "moe" else "auction_fused_warm_entries"
-                kernel = "auction_rounds" if name == "moe" else "auction_fused"
-                check(got[key] > 0 and got[kernel] > 0, f"{name} warm prices: launches {got}")
+                if name == "moe":  # n = 64: the prices carry from call to call inside decompose_rounds
+                    check(got["decompose_rounds_warm"] > 0, f"{name} warm prices: launches {got}")
+                else:
+                    check(got["auction_fused_warm_entries"] > 0 and got["auction_fused"] > 0,
+                          f"{name} warm prices: launches {got}")
             reads = [p.host_reads for p in per]
             check(all(r is not None for r in reads), f"{name}: host reads not counted")
             tag = name + (" warm_prices" if warm_prices else "")
@@ -2235,7 +2290,7 @@ def phase_online(rng, cpu_child, cpu_path: str) -> dict:
         print(f"online {name}: card == plain CPU path in warm, cache_hit, k, reuse_count; makespans max relative "
               f"difference {rel:.3g}; FCT p50/p99 and attribution shares max relative difference {flow_rel:.3g} "
               f"(CPU run {float(cpu[f'{name}.seconds']):.1f} s)")
-    check(launches["auction_rounds"] > 0 and launches["auction_fused"] > 0 and launches["auction_bid"] == 0,
+    check(launches["decompose_rounds"] > 0 and launches["auction_fused"] > 0 and launches["auction_bid"] == 0,
           f"online path launches {launches}")
     print(f"online: waited {time.perf_counter() - t0:.1f} s for the CPU scans; launches {launches}")
     return dict(launches=launches, rows=rows, loops=loops, warm_check_cases=cases, warm_check_max_abs_err=max_err)
@@ -2248,24 +2303,21 @@ def phase_dashboard(tmp_dir: str) -> dict:
     import contextlib
     import io
 
-    from repro_torch.kernels.auction_bid import auction_rounds, masked_row_top2
-    from repro_torch.kernels.auction_fused import fused_auction, polish_2swap
     from repro_torch.obs.dashboard import main as dashboard
 
     path = Path(tmp_dir) / "moe.html"
-    masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = polish_2swap.launches = 0
+    zero_auction_counters()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = dashboard(["moe", "--solver", "spectra_torch", "--online", "--html", str(path)])
     wall = time.perf_counter() - t0
-    launches = {"auction_bid": masked_row_top2.launches, "auction_rounds": auction_rounds.launches,
-                "auction_fused": fused_auction.launches, "polish_2swap": polish_2swap.launches}
+    launches = auction_counters()
     check(rc == 0, f"the dashboard exited with {rc}")
     check(path.exists(), "the dashboard wrote no HTML report")
     text = path.read_text()
     check(all(f"ocs{h}" in text for h in range(4)), "the HTML report does not name every switch")
-    check(launches["auction_rounds"] > 0 and launches["auction_bid"] == 0, f"dashboard launches {launches}")
+    check(launches["decompose_rounds"] > 0 and launches["auction_bid"] == 0, f"dashboard launches {launches}")
     lines = out.getvalue().splitlines()
     print(f"dashboard moe --solver spectra_torch --online: exit 0 in {wall:.1f} s, {path.name} "
           f"{len(text)} bytes naming ocs0..ocs3; launches {launches}; {lines[0]} | {lines[1].strip()} | "
@@ -2276,7 +2328,7 @@ def phase_dashboard(tmp_dir: str) -> dict:
 def phase_serving(seed: int, cpu_path: str) -> dict:
     """The serving plane on the card (``repro_torch.serve``), with the kernels'
     counters set to 0 just before it and read after it: it must launch
-    ``auction_rounds`` and no ``masked_row_top2``.
+    ``decompose_rounds`` and no ``masked_row_top2``.
 
     1. Double buffering: 4 batches of B = 8 ``moe_phases`` matrices at
        n = 64, s = 4, δ = 0.01 through ``ScheduleServer(solver=
@@ -2298,13 +2350,11 @@ def phase_serving(seed: int, cpu_path: str) -> dict:
        ``cache_hit``, ``k`` and ``reuse_count`` equal the CPU child's.
     """
     from repro_torch.api import SolveOptions, dispatch_many_torch
-    from repro_torch.kernels.auction_bid import auction_rounds, masked_row_top2
-    from repro_torch.kernels.auction_fused import fused_auction, polish_2swap
     from repro_torch.scenarios import make_trace
     from repro_torch.serve import (AdmissionController, ScheduleCache, ScheduleServer, make_workload,
                                    mixed_profile, run_open_loop)
 
-    masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = polish_2swap.launches = 0
+    zero_auction_counters()
     opts = SolveOptions()
     B, batches = 8, 4
     mats = make_trace("moe_phases", periods=B * batches, seed=seed).normalized()[0]
@@ -2385,9 +2435,8 @@ def phase_serving(seed: int, cpu_path: str) -> dict:
               f"{[r.extras['reuse_count'] for r in reps]}, δ avoided {stats[name]['delta_avoided']:.4g}; decisions "
               f"== the CPU's")
     check(stats["moe_phases"]["warm"] > 0, f"session moe_phases: no warm period ({stats['moe_phases']})")
-    launches = {"auction_bid": masked_row_top2.launches, "auction_rounds": auction_rounds.launches,
-                "auction_fused": fused_auction.launches, "polish_2swap": polish_2swap.launches}
-    check(launches["auction_rounds"] > 0 and launches["auction_bid"] == 0, f"serving launches {launches}")
+    launches = auction_counters()
+    check(launches["decompose_rounds"] > 0 and launches["auction_bid"] == 0, f"serving launches {launches}")
     print(f"serving sessions: {2 * SESSION_PERIODS} periods in {sessions_s * 1e3:.1f} ms (CPU child "
           f"{float(cpu['session.seconds']):.1f} s); serving launches {launches}")
     return dict(launches=launches, solve_ms=solve_s * 1e3, install_ms=install * 1e3,
@@ -2409,20 +2458,27 @@ DRYRUN_BEFORE = {"qwen3-moe-30b-a3b__train_4k": dict(flops=1.050e15, bytes=8.794
 
 
 def auction_counters() -> dict:
-    from repro_torch.kernels.auction_bid import auction_rounds, masked_row_top2
+    from repro_torch.kernels.auction_bid import auction_rounds, decompose_rounds, masked_row_top2
     from repro_torch.kernels.auction_fused import fused_auction, polish_2swap
 
     return {"auction_bid": masked_row_top2.launches, "auction_rounds": auction_rounds.launches,
+            "decompose_rounds": decompose_rounds.launches,
             "auction_fused": fused_auction.launches, "polish_2swap": polish_2swap.launches,
             "auction_fused_cluster": fused_auction.cluster_launches}
 
 
 def zero_auction_counters() -> None:
-    from repro_torch.kernels.auction_bid import auction_rounds, masked_row_top2
+    from repro_torch.kernels.auction_bid import auction_rounds, decompose_rounds, masked_row_top2
     from repro_torch.kernels.auction_fused import fused_auction, polish_2swap
 
     masked_row_top2.launches = auction_rounds.launches = fused_auction.launches = polish_2swap.launches = 0
-    fused_auction.cluster_launches = 0
+    fused_auction.cluster_launches = decompose_rounds.launches = 0
+
+
+def round_kernels(launches: dict) -> int:
+    """Launches of the n ≤ 128 auction kernels: DECOMPOSE's whole round loop
+    (``decompose_rounds``) or one matcher call (``auction_rounds``)."""
+    return launches["decompose_rounds"] + launches["auction_rounds"]
 
 
 def flash_f32_gpt_shape(rng) -> dict:
@@ -2742,7 +2798,7 @@ def phase_runtime() -> tuple[dict, list[dict]]:
     benchmark at B = 16 with 10 host reps, benchmark_large (n = 256) and
     permutations_large (n = 512) at B = 2 with 2. Every row must be finite,
     with its device/host makespan within RUNTIME_QUALITY; the n ≤ 128 rows
-    launch auction_rounds, the large ones auction_fused, and no
+    launch decompose_rounds, the large ones auction_fused, and no
     masked_row_top2. The gpt row's B = 16 batch is then solved again on the
     card and on the plain CPU path: makespans equal to 1e-4."""
     from repro_torch.api import solve_many
@@ -2761,7 +2817,7 @@ def phase_runtime() -> tuple[dict, list[dict]]:
         print(f"runtime {r['workload']}: host spectra mean {r['mean_ms']:.3f} ms, p95 {r['p95_ms']:.3f} ms; "
               f"spectra_torch {r['batched_device_ms_per_instance']:.3f} ms a matrix at B={r['batch_size']} (one "
               f"solve_many after a warm one); device/host makespan {r['device_quality_vs_host']:.4f}")
-    check(launches["auction_rounds"] > 0 and launches["auction_fused"] > 0 and launches["auction_bid"] == 0,
+    check(launches["decompose_rounds"] > 0 and launches["auction_fused"] > 0 and launches["auction_bid"] == 0,
           f"runtime launches {launches}")
     Ds = runtime.device_matrices("gpt", runtime.BATCH)
     gpu = solve_many(Ds, 4, runtime.DELTA, solver="spectra_torch", options=fast_options(None))
@@ -2795,14 +2851,14 @@ def phase_serve_bench() -> tuple[dict, list[str], list[dict]]:
           f"{over['requests']}, max depth {over['max_depth']} (bound {over['max_queue']}), accounted "
           f"{over['accounted']}; gates {'FAILED: ' + '; '.join(failures) if failures else 'passed'}; "
           f"launches {launches}")
-    check(launches["auction_rounds"] > 0, f"bench/serve launches {launches}")
+    check(round_kernels(launches) > 0, f"bench/serve launches {launches}")
     return launches, failures, [{k: v for k, v in r.items() if k != "metrics"} for r in rows]
 
 
 def phase_online_fig() -> tuple[dict, list[dict]]:
     """bench/online at full size: gpt, moe, benchmark at T = 8 and 32, the
     host controller and the device scan. The device rows must run the scan
-    and launch auction_rounds."""
+    and launch an n ≤ 128 round kernel."""
     from repro_torch.bench import online
 
     zero_kernel_counters()
@@ -2814,7 +2870,7 @@ def phase_online_fig() -> tuple[dict, list[dict]]:
         print(f"{r['name']}: online/stateless {d['ratio']:.4f} ({d['online_total_makespan']:.4f} / "
               f"{d['stateless_total_makespan']:.4f}), reuse {d['reuse']}, δ paid {d['delta_paid']:.3f}, avoided "
               f"{d['delta_avoided']:.3f}; {1e3 * d['runtime_s'] / d['T']:.2f} ms a period ({d['online_backend']})")
-    check(launches["auction_rounds"] > 0, f"bench/online launches {launches}")
+    check(round_kernels(launches) > 0, f"bench/online launches {launches}")
     return launches, data
 
 
@@ -2829,7 +2885,7 @@ def phase_scenario_mode() -> tuple[dict, int]:
                          "--flowsim", "--obs"])
     launches = kernel_counters()
     print(f"bench/scenarios exit status {rc}; launches {launches}")
-    check(launches["auction_rounds"] > 0, f"bench/scenarios launches {launches}")
+    check(round_kernels(launches) > 0, f"bench/scenarios launches {launches}")
     return launches, rc
 
 
@@ -2850,14 +2906,14 @@ def phase_experiments() -> tuple[dict, list[dict]]:
     check(sorted(t["cell"] for t in table) == sorted(f"{arch}×{shape}" for arch, shape in DRYRUN_CELLS),
           f"bench/experiments rows {[t['cell'] for t in table]}, expected the cells {DRYRUN_CELLS}")
     print(f"bench/experiments: {len(table)} roofline rows; launches {launches}")
-    check(launches["auction_rounds"] > 0, f"bench/experiments launches {launches}")
+    check(round_kernels(launches) > 0, f"bench/experiments launches {launches}")
     return launches, table
 
 
 def phase_examples() -> tuple[dict, dict]:
     """The four examples of the device path as a user runs them, each with its
-    seconds and launches: batched_device_scheduling (auction_rounds),
-    serve_loadtest (auction_rounds), serve_decode (decode by replay, as the
+    seconds and launches: batched_device_scheduling (decompose_rounds),
+    serve_loadtest (an n ≤ 128 round kernel), serve_decode (decode by replay, as the
     reference's: no kernel), moe_traffic_schedule (flash_attention in its
     train steps)."""
     from repro_torch.api import SolveOptions, solve_many
@@ -2879,7 +2935,7 @@ def phase_examples() -> tuple[dict, dict]:
         out[name] = dict(seconds=took, launches=launches)
         if name == "batched_device_scheduling":
             lo, hi = RUNTIME_QUALITY
-            check(launches["auction_rounds"] > 0 and all(lo <= q <= hi for q in res["ratios"]),
+            check(launches["decompose_rounds"] > 0 and all(lo <= q <= hi for q in res["ratios"]),
                   f"{name}: device/host ratios {res['ratios']} outside {RUNTIME_QUALITY}, {launches}")
             cpu = solve_many(make_trace("benchmark", n=32, m=8, num_big=4, periods=4).demands, 4, 0.01,
                              solver="spectra_torch", options=SolveOptions(extra={"matcher": "auction", "device": "cpu"}))
@@ -2888,7 +2944,7 @@ def phase_examples() -> tuple[dict, dict]:
             print(f"example {name}: GPU makespans agree with the plain CPU path (max relative difference {rel:.3g})")
             out[name]["worst_quality"] = res["worst"]
         elif name == "serve_loadtest":
-            check(launches["auction_rounds"] > 0 and res["open_loop"]["schedules"] == res["arrivals"]
+            check(round_kernels(launches) > 0 and res["open_loop"]["schedules"] == res["arrivals"]
                   and res["shed"] > 0 and res["served"] + res["shed"] == res["overload"], f"{name}: {res}, {launches}")
             out[name].update(hit_rate=res["open_loop"]["cache_hit_rate"], shed=res["shed"])
         elif name == "serve_decode":
@@ -2955,6 +3011,7 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str, dry_child) -> Non
     rng = np.random.default_rng(args.seed)
     bid = phase_bid(rng)
     rounds = phase_rounds(rng)
+    decomp = phase_decompose(rng)
     fused = phase_fused(rng)
     polish = phase_polish(rng)
     flash = phase_flash(rng)
@@ -2964,7 +3021,7 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str, dry_child) -> Non
     t0 = time.perf_counter()
     launches = phase_main_path(args.seed)
     print(f"solver path: {time.perf_counter() - t0:.1f} s")
-    check(launches["auction_rounds"] > 0 and launches["auction_fused"] > 0 and launches["auction_bid"] == 0,
+    check(launches["decompose_rounds"] > 0 and launches["auction_fused"] > 0 and launches["auction_bid"] == 0,
           f"main path launches {launches}")
     api_launches, matcher_api = phase_matcher_api(args.seed)
     t0 = time.perf_counter()
@@ -3059,6 +3116,13 @@ def run_phases(args, t_start: float, cpu_child, cpu_path: str, dry_child) -> Non
              bound_ms=rounds["bound_ms"], bound_by=rounds["bound_by"], library_ms=None,
              shape=rounds["shape"], rounds=rounds["rounds"], bids=rounds["bids"],
              matcher_call_ms=rounds["matcher_call_ms"]),
+        dict(name="decompose_rounds", route="cuda", source="src/repro_torch/csrc/auction_rounds.cu",
+             replaces="src/repro/core/jaxopt/decompose_jax.py (the round loop around kernel.py:22)",
+             launches=sum(paths("decompose_rounds").values()), launches_by_path=paths("decompose_rounds"),
+             online_warm_launches=by_online["decompose_rounds_warm"],
+             max_abs_err=decomp["max_abs_err"], ms=decomp["ms"], plain_ms=decomp["plain_ms"], loop_ms=decomp["loop_ms"],
+             bound_ms=decomp["bound_ms"], bound_by=decomp["bound_by"], library_ms=None, shape=decomp["shape"],
+             k=decomp["k"], rounds=decomp["rounds"]),
         dict(name="auction_fused", route="cuda", source="src/repro_torch/csrc/auction_fused.cu",
              replaces="src/repro/kernels/auction_fused/kernel.py:55",
              launches=sum(paths("auction_fused").values()), launches_by_path=paths("auction_fused"),

@@ -21,9 +21,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...kernels.auction_bid.ops import ROUNDS_MAX_N, decompose_rounds
+from ...kernels.auction_bid.ref import add_at as _add_at, decompose_round_loop, take_at as _take
 from ...kernels.backend import resolve_device
 from ..decompose import Decomposition
-from .matching import get_matcher
+from .matching import (default_max_iters, default_num_phases, eps_table, get_matcher, match_auction,
+                       match_auction_fr)
 
 
 class TorchDecomposition(NamedTuple):
@@ -34,100 +37,62 @@ class TorchDecomposition(NamedTuple):
     rounds: torch.Tensor     # (B,) int64: matcher bidding rounds, all calls
 
 
-def _take(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """x[b, i, perm[b, i]] for (B, n, n) x and (B, n) perm."""
-    return torch.gather(x, 2, perm[..., None])[..., 0]
-
-
-def _add_at(x: torch.Tensor, perm: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """x[b, i, perm[b, i]] += v[b] (the indices of one lane are distinct)."""
-    return x.scatter_add(2, perm[..., None], v[:, None, None].expand(-1, x.shape[1], 1))
-
-
-def coverage(perms: torch.Tensor, alphas: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """Σ_r α_r P_r over each lane's first k rounds, as a (B, n, n) matrix.
+def coverage(perms: torch.Tensor, alphas: torch.Tensor, k: torch.Tensor,
+             kmax: int | None = None) -> torch.Tensor:
+    """Σ_r α_r P_r over each lane's first k rounds, as a (B, n, n) matrix,
+    from ``perms`` (B, m, n) and ``alphas`` (B, m), m ≥ max(k).
 
     Rounds are added one at a time, in round order, so the sum is the same
-    on every device and in every run.
+    on every device and in every run. ``kmax`` is ``max(k)`` where the
+    caller has read it already.
     """
-    B, n, _ = perms.shape
-    live = torch.arange(n, device=perms.device)[None, :] < k[:, None]
+    B, m, n = perms.shape
+    live = torch.arange(m, device=perms.device)[None, :] < k[:, None]
     al = alphas * live
     out = torch.zeros((B, n, n), dtype=torch.float32, device=perms.device)
-    for r in range(int(k.max()) if B else 0):
+    if kmax is None:
+        kmax = int(k.max()) if B else 0
+    for r in range(kmax):
         out = _add_at(out, perms[:, r], al[:, r])
     return out
 
 
+def uses_device_loop(match, n: int, device: torch.device) -> bool:
+    """Whether DECOMPOSE runs its whole round loop in one ``decompose_rounds``
+    launch: on a CUDA device, for 5 ≤ n ≤ 128 (the kernel's shared memory;
+    the ε table's identity), with the built-in ``match_auction`` or
+    ``match_auction_fr`` as the matcher (the function itself: a matcher
+    registered over a built-in name runs in the host loop)."""
+    return (torch.device(device).type == "cuda" and 5 <= n <= ROUNDS_MAX_N
+            and (match is match_auction or match is match_auction_fr))
+
+
 def _decompose_rounds(D: torch.Tensor, matcher: str, carry_prices: bool = False,
                       prices0: torch.Tensor | None = None):
-    """Alg. 1: matcher rounds until no residual support is left.
-
-    With ``carry_prices`` each round's matcher starts from the previous
-    round's final prices, lane by lane, and round 0 from ``prices0`` (None:
-    zeros); the final prices come back as the sixth result. Without it every
-    round starts from zero prices and ``prices0`` comes back unchanged. The
-    seventh result is the number of matcher calls, the loop's iterations.
-    """
+    """Alg. 1: matcher rounds until no residual support is left; see
+    ``decompose_round_loop`` for the prices and the six results, followed
+    here by whether the device loop ran. Where ``uses_device_loop`` holds,
+    one kernel launch runs every round, bit for bit the host loop's;
+    elsewhere the loop runs on the host, one matcher call a round."""
     match = get_matcher(matcher)
     B, n, _ = D.shape
-    dev = D.device
-    prices = (torch.zeros((B, n), dtype=torch.float32, device=dev) if prices0 is None
-              else torch.as_tensor(prices0, dtype=torch.float32, device=dev).expand(B, n).clone())
-    D_rem = D.clone()
-    S_rem = D > 0
-    perms = torch.arange(n, device=dev).expand(B, n, n).clone()
-    alphas = torch.zeros((B, n), dtype=torch.float32, device=dev)
-    i = torch.zeros((B,), dtype=torch.int64, device=dev)
-    conv = torch.ones((B,), dtype=torch.bool, device=dev)
-    rounds = torch.zeros((B,), dtype=torch.int64, device=dev)
-    calls = 0
-    while True:
-        active = S_rem.any(dim=(1, 2)) & (i < n)
-        idx = active.nonzero()[:, 0]
-        if idx.numel() == 0:
-            break
-        calls += 1
-        Dr, Sr, ir = D_rem[idx], S_rem[idx], i[idx]
-        row_deg = Sr.sum(dim=2)
-        col_deg = Sr.sum(dim=1)
-        kdeg = torch.maximum(row_deg.amax(dim=1), col_deg.amax(dim=1))
-        crit_r = (row_deg == kdeg[:, None]) & (kdeg > 0)[:, None]
-        crit_c = (col_deg == kdeg[:, None]) & (kdeg > 0)[:, None]
-        base = torch.clamp_min(Dr, 0.0)
-        # Dominance constant with a relative margin over the matcher's n·ε
-        # slack (see the reference's comment at the same line). Summed in
-        # float64 and rounded once, so CPU and GPU reductions give the same
-        # M (the reference's float32 sum order is XLA's own).
-        row_max_sum = base.amax(dim=2).sum(dim=1, dtype=torch.float64).float()
-        M = (row_max_sum + 1.0) * (1.0 + n * 2.0**-19)
-        bonus = M[:, None, None] * (crit_r[:, :, None].float() + crit_c[:, None, :].float())
-        W = base + torch.where(Sr, bonus, 0.0)
-        if carry_prices:
-            res = match(W, prices0=prices[idx])
-            prices[idx] = res.prices
-        else:
-            res = match(W)
-        perm = res.perm
-        newly = _take(Sr, perm)
-        vals = torch.where(newly, _take(Dr, perm), torch.inf)
-        alpha = torch.where(newly.any(dim=1), vals.amin(dim=1), 0.0)
-        Dr = torch.clamp_min(_add_at(Dr, perm, -alpha), 0.0)
-        Sr = Sr.scatter(2, perm[..., None], False)
-        D_rem[idx], S_rem[idx] = Dr, Sr
-        perms[idx, ir] = perm
-        alphas[idx, ir] = alpha
-        i[idx] = ir + 1
-        conv[idx] &= res.converged
-        rounds[idx] += res.rounds
-    return perms, alphas, i, conv, rounds, prices, calls
+    if B and uses_device_loop(match, n, D.device):
+        p0 = (None if prices0 is None
+              else torch.as_tensor(prices0, dtype=torch.float32, device=D.device).expand(B, n).contiguous())
+        return *decompose_rounds(D.contiguous(), eps_table(default_num_phases(n), D.device),
+                                 default_max_iters(n), reverse=match is match_auction_fr,
+                                 carry=carry_prices, prices0=p0), True
+    return *decompose_round_loop(D, match, carry_prices, prices0), False
 
 
 def _refine(D, perms, alphas, k):
-    """Alg. 2: greedy REFINE over each lane's first k rounds."""
-    R = torch.clamp_min(D - coverage(perms, alphas, k), 0.0)
+    """Alg. 2: greedy REFINE over each lane's first k rounds, given as
+    ``perms`` (B, m, n) and ``alphas`` (B, m) with m ≥ max(k); returns the
+    (B, m) refined weights."""
+    m = alphas.shape[1]
+    R = torch.clamp_min(D - coverage(perms, alphas, k, m), 0.0)
     alphas = alphas.clone()
-    for r in range(int(k.max())):
+    for r in range(m):
         perm = perms[:, r]
         d = torch.clamp_min(_take(R, perm).amax(dim=1), 0.0)
         d = torch.where(r < k, d, 0.0)
@@ -168,13 +133,17 @@ def _repair(D, perms, alphas, k, repair_rounds: int):
 
 
 def _decompose(D, matcher, repair_rounds, carry_prices, prices0):
-    """The decomposition, the final prices and the number of matcher calls."""
+    """The decomposition, the final prices, the number of matcher calls
+    (``max(k)`` before repair: the round loop's iterations) and whether one
+    ``decompose_rounds`` launch ran the round loop."""
     D = D.to(torch.float32)
-    perms, alphas, k, conv, rounds, prices, calls = _decompose_rounds(D, matcher, carry_prices, prices0)
-    alphas = _refine(D, perms, alphas, k)
+    perms, alphas, k, conv, rounds, prices, device_loop = _decompose_rounds(D, matcher, carry_prices, prices0)
+    calls = int(k.max()) if D.shape[0] else 0  # the one host read before REFINE
+    # REFINE sees the rounds that ran; the weights past them stay 0.
+    alphas = torch.cat([_refine(D, perms[:, :calls], alphas[:, :calls], k), alphas[:, calls:]], dim=1)
     if repair_rounds:
         perms, alphas, k = _repair(D, perms, alphas, k, repair_rounds)
-    return TorchDecomposition(perms, alphas, k, conv, rounds), prices, calls
+    return TorchDecomposition(perms, alphas, k, conv, rounds), prices, calls, device_loop
 
 
 def decompose(

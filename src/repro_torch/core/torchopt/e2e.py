@@ -7,7 +7,8 @@ device and returns a dense ``DeviceSchedule`` per lane. Where the reference
 
 Each stage runs in a span of the tracer (``obs.trace``): ``e2e.decompose``
 (the inputs' upload, Alg. 1's round loop and REFINE; arg ``rounds``, the
-matcher calls), ``e2e.lpt`` (LPT and the slot table), ``e2e.equalize`` (arg
+matcher calls, and ``device_loop``, 1 where one ``decompose_rounds`` launch
+ran the round loop), ``e2e.lpt`` (LPT and the slot table), ``e2e.equalize`` (arg
 ``iters``, the loop's iterations) and ``e2e.bound`` (the makespan reduction
 and the §IV bound). A span's host time holds the device work that its host
 reads wait for; the work enqueued after EQUALIZE's last read is waited for
@@ -107,9 +108,9 @@ def spectra_torch_e2e_many(
         Ds = torch.as_tensor(Ds, dtype=torch.float32, device=dev)
         B = Ds.shape[0]
         deltas = torch.as_tensor(delta, dtype=torch.float32, device=dev).expand(B).contiguous()
-        dec, _, calls = _decompose(Ds, matcher, repair_rounds, False, None)
+        dec, _, calls, device_loop = _decompose(Ds, matcher, repair_rounds, False, None)
         if tracer.enabled:
-            sp.set(rounds=calls)
+            sp.set(rounds=calls, device_loop=int(device_loop))
     ds, lpt_makespan, eq_exhausted = schedule_decomposition(
         dec, s, deltas, do_equalize=do_equalize, merge_aware=merge_aware,
         extra_slots=extra_slots,

@@ -18,8 +18,11 @@ batch dimension. Every matcher takes ``W`` (B, n, n) float32 and returns a
 JAX ``vmap``s its ``while_loop``s; here each lane runs its own loop (in its
 own thread block on the card, under a per-lane done mask in the round
 loop), so a lane's result equals its own single-instance run. The ε
-schedule is formed on the host; only the round loop above n = 128 reads
-the device per round.
+schedule is formed on the host from one table per phase count
+(``eps_table``); only the round loop above n = 128 reads the device per
+round. At n ≤ 128 on the card ``decompose`` runs ``auction`` and
+``auction_fr`` inside its own kernel (``decompose_torch``), bit for bit
+these functions' calls.
 
 A matcher is ``fn(W (B, n, n), *, num_phases=None, max_iters=None,
 prices0=None) -> MatchResult``: the reference's ``(perm, converged)`` and
@@ -34,6 +37,7 @@ a replacement or a policy takes effect there.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -108,12 +112,38 @@ def _eps_ratio(W: torch.Tensor, num_phases: int) -> tuple[torch.Tensor, torch.Te
     return wmax / 2.0, ratio
 
 
+@functools.lru_cache(maxsize=None)
+def _eps_table(num_phases: int, device: torch.device) -> torch.Tensor:
+    ratio = torch.tensor([_EPS_FLOOR * 2.0]) ** (1.0 / max(num_phases - 1, 1))
+    # One element a pow: the CPU's scalar pow, whatever its vector width.
+    table = torch.cat([ratio ** torch.tensor([p]) for p in range(num_phases)])
+    return table.to(device)
+
+
+def eps_table(num_phases: int, device: str | torch.device = "cpu") -> torch.Tensor:
+    """(P,) float32 ``ratio ** arange(P)``: the ε schedule of a call on W
+    with n ≥ 5 is ``(wmax/2) · eps_table(P)``.
+
+    For n ≥ 5 the final ε is ``wmax · 2⁻²²`` (the ``1e-6 / n`` term is
+    smaller), an exact power-of-two scaling of ``wmax``, so the schedule's
+    ratio ``(2⁻²¹) ** (1/(P-1))`` is the same for every ``wmax``: the table
+    is formed once on the host, per P, with the CPU's pow, and cached on
+    each device it is asked for (do not write to it).
+    """
+    return _eps_table(num_phases, torch.device(device))
+
+
 def _eps_schedule(W: torch.Tensor, num_phases: int) -> torch.Tensor:
     """(B, P) geometric ε schedule from ``wmax/2`` down to the floored final ε.
 
     Given the same ``ratio`` it equals the reference's schedule exactly; a
     1–2 ulp difference in ``ratio`` grows to about k·2 ulps in phase k.
+    For n ≥ 5 it is ``(wmax/2) · eps_table(P)``: every lane of every batch
+    bids with the same ratio.
     """
+    if W.shape[-1] >= 5:
+        wmax = torch.clamp_min(W.abs().amax(dim=(1, 2)).cpu(), 1e-12)
+        return ((wmax / 2.0)[:, None] * eps_table(num_phases)[None, :]).to(W.device)
     start, ratio = _eps_ratio(W, num_phases)
     steps = torch.arange(num_phases)
     return (start[:, None] * ratio[:, None] ** steps[None, :]).to(W.device)

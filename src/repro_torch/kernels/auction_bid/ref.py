@@ -11,11 +11,18 @@ the winner masked to ``NEG``.
 (``match_auction_fr``) auction, round by round, with the reference's
 ``_forward_round`` / ``_reverse_round`` written for a leading batch
 dimension. It is the plain version of ``csrc/auction_rounds.cu``.
+
+``decompose_round_loop`` is Alg. 1's round loop around any matcher, and
+``decompose_rounds_ref`` that loop around ``auction_rounds_ref`` with the ε
+schedule ``(wmax/2) · T``: the plain version of the same file's DECOMPOSE
+kernel.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..auction_fused.ref import complete_greedy
 
 NEG = -1e30
 
@@ -162,3 +169,95 @@ def auction_rounds_ref(W: torch.Tensor, eps: torch.Tensor, max_iters: int, *, re
             it += active
         rounds += it
     return row2col, col2row, prices, rounds, bids
+
+
+def take_at(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """x[b, i, perm[b, i]] for (B, n, n) x and (B, n) perm."""
+    return torch.gather(x, 2, perm[..., None])[..., 0]
+
+
+def add_at(x: torch.Tensor, perm: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """x[b, i, perm[b, i]] += v[b] (the indices of one lane are distinct)."""
+    return x.scatter_add(2, perm[..., None], v[:, None, None].expand(-1, x.shape[1], 1))
+
+
+def decompose_round_loop(D: torch.Tensor, match, carry_prices: bool = False,
+                         prices0: torch.Tensor | None = None):
+    """Alg. 1: matcher rounds until no residual support is left.
+
+    ``match(W, prices0=None)`` returns ``(perm, converged, prices, rounds)``
+    for the (B', n, n) weights of the lanes still running (a ``MatchResult``).
+    With ``carry_prices`` each round's matcher starts from the previous
+    round's final prices, lane by lane, and round 0 from ``prices0`` (None:
+    zeros); the final prices come back as the sixth result. Without it every
+    round starts from zero prices and ``prices0`` comes back unchanged.
+    Returns ``(perms, alphas, k, converged, rounds, prices)``; the loop ran
+    ``max(k)`` matcher calls.
+    """
+    B, n, _ = D.shape
+    dev = D.device
+    prices = (torch.zeros((B, n), dtype=torch.float32, device=dev) if prices0 is None
+              else torch.as_tensor(prices0, dtype=torch.float32, device=dev).expand(B, n).clone())
+    D_rem = D.clone()
+    S_rem = D > 0
+    perms = torch.arange(n, device=dev).expand(B, n, n).clone()
+    alphas = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    i = torch.zeros((B,), dtype=torch.int64, device=dev)
+    conv = torch.ones((B,), dtype=torch.bool, device=dev)
+    rounds = torch.zeros((B,), dtype=torch.int64, device=dev)
+    while True:
+        active = S_rem.any(dim=(1, 2)) & (i < n)
+        idx = active.nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        Dr, Sr, ir = D_rem[idx], S_rem[idx], i[idx]
+        row_deg = Sr.sum(dim=2)
+        col_deg = Sr.sum(dim=1)
+        kdeg = torch.maximum(row_deg.amax(dim=1), col_deg.amax(dim=1))
+        crit_r = (row_deg == kdeg[:, None]) & (kdeg > 0)[:, None]
+        crit_c = (col_deg == kdeg[:, None]) & (kdeg > 0)[:, None]
+        base = torch.clamp_min(Dr, 0.0)
+        # Dominance constant with a relative margin over the matcher's n·ε
+        # slack (see the reference's comment at the same line). Summed in
+        # float64 and rounded once, so CPU and GPU reductions give the same
+        # M (the reference's float32 sum order is XLA's own).
+        row_max_sum = base.amax(dim=2).sum(dim=1, dtype=torch.float64).float()
+        M = (row_max_sum + 1.0) * (1.0 + n * 2.0**-19)
+        bonus = M[:, None, None] * (crit_r[:, :, None].float() + crit_c[:, None, :].float())
+        W = base + torch.where(Sr, bonus, 0.0)
+        if carry_prices:
+            perm, converged, p, r = match(W, prices0=prices[idx])
+            prices[idx] = p
+        else:
+            perm, converged, _, r = match(W)
+        newly = take_at(Sr, perm)
+        vals = torch.where(newly, take_at(Dr, perm), torch.inf)
+        alpha = torch.where(newly.any(dim=1), vals.amin(dim=1), 0.0)
+        Dr = torch.clamp_min(add_at(Dr, perm, -alpha), 0.0)
+        Sr = Sr.scatter(2, perm[..., None], False)
+        D_rem[idx], S_rem[idx] = Dr, Sr
+        perms[idx, ir] = perm
+        alphas[idx, ir] = alpha
+        i[idx] = ir + 1
+        conv[idx] &= converged
+        rounds[idx] += r
+    return perms, alphas, i, conv, rounds, prices
+
+
+def decompose_rounds_ref(D: torch.Tensor, T: torch.Tensor, max_iters: int, *, reverse: bool,
+                         carry: bool, prices0: torch.Tensor | None = None):
+    """Alg. 1's round loop with the forward (``reverse=False``) or
+    forward-reverse auction as its matcher: each call on W bids under the ε
+    schedule ``(wmax/2) · T`` (wmax = max(|W|, 1e-12)), runs at most
+    ``max_iters`` rounds a phase, and completes its maps greedily. Arguments
+    and results as ``decompose_round_loop``'s, with ``carry`` for
+    ``carry_prices``. For n ≥ 5 and ``T = matching.eps_table(P)`` a call is
+    ``match_auction`` / ``match_auction_fr``'s with P phases, bit for bit."""
+
+    def match(W, prices0=None):
+        wmax = torch.clamp_min(W.abs().amax(dim=(1, 2)), 1e-12)
+        eps = (wmax / 2.0)[:, None] * T[None, :]
+        r2c, c2r, prices, rounds, _ = auction_rounds_ref(W, eps, max_iters, reverse=reverse, prices0=prices0)
+        return complete_greedy(r2c, c2r), (r2c >= 0).all(dim=1), prices, rounds
+
+    return decompose_round_loop(D, match, carry, prices0)

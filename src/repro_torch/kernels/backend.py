@@ -57,6 +57,9 @@ _SIGNATURES = {
     "auction_bid_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # W, eps, prices0 (or null), r2c, c2r, prices, rounds, bids, B, n, P, max_iters, reverse, stream
     "auction_rounds_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # D, T, prices0 (or null), perms, alphas, k, converged, rounds, prices, B, n, P, max_iters, reverse,
+    # carry, stream
+    "decompose_rounds_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # W, prices0, eps, r2c, c2r, prices, rounds, bids, B, n, P, max_iters, cluster, stream
     "auction_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # W, Wt, r2c, c2r, perm, converged, B, n, max_swaps, stream

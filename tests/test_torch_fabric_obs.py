@@ -180,7 +180,7 @@ def test_fused_solve_stage_spans_tile_the_dispatch_in_order(traced, equalize):
     assert dispatch.start <= stages[0].start and stages[-1].end <= dispatch.end
     assert sum(e.duration for e in stages) <= dispatch.duration
     dec = stages[0]
-    assert dec.args == {"rounds": max(r.extras["k"] for r in reports)}
+    assert dec.args == {"rounds": max(r.extras["k"] for r in reports), "device_loop": 0}
     if equalize:
         assert stages[2].args["iters"] >= 1 and set(stages[2].args) == {"iters"}
     # Nothing synchronizes on the CPU: no span carries a host-read count.

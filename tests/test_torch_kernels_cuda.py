@@ -6,8 +6,8 @@ Marked ``requires_cuda``: they skip without a CUDA device. On the GPU host
     python -m pytest tests/test_torch_kernels_cuda.py -q -m requires_cuda
 
 The auction kernels (``masked_row_top2``, ``auction_rounds``,
-``fused_auction``) must equal their plain versions exactly, on inputs full
-of ties; flash_attention (bfloat16 on the tensor cores, float32 on the CUDA
+``decompose_rounds``, ``fused_auction``) must equal their plain versions
+exactly, on inputs full of ties; flash_attention (bfloat16 on the tensor cores, float32 on the CUDA
 cores) and ssd_chunk hold to the tolerances stated below.
 """
 
@@ -109,6 +109,109 @@ def test_rounds_kernel_warm_prices_equal_plain(cuda, n, reverse):
     zeros = auction_rounds(W, eps, mi, reverse=reverse, prices0=torch.zeros_like(p0))
     for c, z in zip(cold, zeros):
         assert torch.equal(c, z)
+
+
+def _moe_stack(B, seed):
+    """B moe matrices at n = 64 (degree 63), each scaled to max line sum 1."""
+    from repro_torch.traffic.workloads import moe_workload
+
+    rng = np.random.default_rng(seed)
+    Ds = [moe_workload(n=64, rng=rng) for _ in range(B)]
+    return torch.tensor(np.stack([D / max(D.sum(0).max(), D.sum(1).max()) for D in Ds]), dtype=torch.float32)
+
+
+def _perm_stack(n, ks, seed):
+    """Lane b: a sum of ks[b] random permutations (0: an all-zero lane)."""
+    rng = np.random.default_rng(seed)
+    D = np.zeros((len(ks), n, n), np.float32)
+    for b, k in enumerate(ks):
+        for _ in range(k):
+            D[b, np.arange(n), rng.permutation(n)] += rng.random() + 0.05
+    return torch.from_numpy(D)
+
+
+@pytest.mark.parametrize("case,matcher,carry", [
+    ("moe64", "auction_fr", False),
+    ("moe64", "auction", False),
+    ("moe64", "auction_fr", True),
+    ("perm32", "auction", False),
+    ("perm32", "auction_fr", True),
+    ("perm100", "auction_fr", False),
+    ("perm100", "auction", True),
+    ("perm128", "auction_fr", False),
+    ("perm128", "auction_fr", True),
+])
+def test_decompose_kernel_equals_the_loop(cuda, case, matcher, carry):
+    """One ``decompose_rounds`` launch against the host loop of matcher calls
+    (each an ``auction_rounds`` launch) on the card, and at n = 32 against
+    the plain version on the CPU: perms, alphas, k, converged, rounds and
+    prices bit for bit. moe at n = 64, B = 16 (63 rounds a lane); sums of
+    random permutations with ragged k and an all-zero lane; carried prices
+    from a random start."""
+    from repro_torch.core.torchopt.matching import eps_table, get_matcher
+    from repro_torch.kernels.auction_bid import decompose_round_loop, decompose_rounds
+
+    if case == "moe64":
+        D = _moe_stack(16, 7)
+    else:
+        n = int(case.removeprefix("perm"))
+        D = _perm_stack(n, [8, 3, 0, 16, 1], n)
+    B, n, _ = D.shape
+    Dc = D.to(cuda)
+    p0 = torch.rand((B, n), generator=torch.Generator().manual_seed(n)).to(cuda) if carry else None
+    T = eps_table(default_num_phases(n), cuda)
+    before = decompose_rounds.launches
+    got = decompose_rounds(Dc, T, default_max_iters(n), reverse=matcher == "auction_fr", carry=carry, prices0=p0)
+    torch.cuda.synchronize()
+    assert decompose_rounds.launches == before + 1
+    launches = auction_rounds.launches
+    want = decompose_round_loop(Dc, get_matcher(matcher), carry, p0)
+    assert auction_rounds.launches - launches == int(want[2].max())
+    names = ("perms", "alphas", "k", "converged", "rounds", "prices")
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    if n == 32:
+        plain = decompose_round_loop(D, get_matcher(matcher), carry, None if p0 is None else p0.cpu())
+        for name, g, w in zip(names, got, plain):
+            assert torch.equal(g.cpu(), w), name
+    if case == "moe64":
+        assert (got[2] == 63).all()
+
+
+def test_decompose_launches_once_a_decompose(cuda):
+    """``decompose`` / ``decompose_prices`` on the card: one
+    ``decompose_rounds`` launch and no ``auction_rounds`` launch with the
+    built-in auctions at n ≤ 128; the host loop with ``auction_fused``, above
+    n = 128, and with a built-in name replaced by another function. Only a
+    launch whose first call bids from given prices counts as warm."""
+    from repro_torch.core.torchopt import matching as tm
+    from repro_torch.core.torchopt.decompose_torch import decompose, decompose_prices
+    from repro_torch.kernels.auction_bid import decompose_rounds
+
+    def count(fn):
+        before = decompose_rounds.launches, auction_rounds.launches
+        fn()
+        torch.cuda.synchronize()
+        return decompose_rounds.launches - before[0], auction_rounds.launches - before[1]
+
+    D = _perm_stack(32, [4, 2, 0], 3).to(cuda)
+    assert count(lambda: decompose(D, matcher="auction")) == (1, 0)
+    assert count(lambda: decompose(D, matcher="auction_fr")) == (1, 0)
+    assert count(lambda: decompose_prices(D, None, matcher="auction_fr")) == (1, 0)
+    warm = decompose_rounds.warm_launches
+    decompose(D, matcher="auction")
+    decompose_prices(D, None, matcher="auction_fr")
+    decompose_prices(D, torch.rand((3, 32), device=cuda), matcher="auction_fr")
+    assert decompose_rounds.warm_launches == warm + 1
+    assert count(lambda: decompose(D, matcher="auction_fused")) == (0, 0)
+    assert count(lambda: decompose(_perm_stack(160, [2], 4).to(cuda), matcher="auction")) == (0, 0)
+    orig = tm.MATCHERS["auction"]
+    tm.register_matcher("auction", lambda W, **kw: orig(W, **kw), overwrite=True)
+    try:
+        out = []
+        assert count(lambda: out.append(decompose(D, matcher="auction"))) == (0, int(out[0].k.max()))
+    finally:
+        tm.register_matcher("auction", orig, overwrite=True)
 
 
 @pytest.mark.parametrize("B,n", [(4, 129), (8, 37), (3, 1000)])
@@ -508,8 +611,10 @@ def _serving_batch(n=32, B=4, seed=0):
 
 def test_async_server_on_the_card_equals_sync(cuda):
     """The worker thread solves on the card; sync and async serve the same
-    tickets with the same makespans, and both launch ``auction_rounds``."""
+    tickets with the same makespans, and both launch ``decompose_rounds``
+    (DECOMPOSE's round loop at n ≤ 128 in one launch)."""
     from repro_torch.api import SolveOptions
+    from repro_torch.kernels.auction_bid import decompose_rounds
     from repro_torch.serve import ScheduleServer
 
     mats = _serving_batch()
@@ -518,11 +623,11 @@ def test_async_server_on_the_card_equals_sync(cuda):
         srv = ScheduleServer(4, 0.01, mode=mode, options=SolveOptions(), max_batch=2,
                              install_latency_s=0.005)
         assert srv.mode == mode and srv.device.type == "cuda"
-        before = auction_rounds.launches
+        before = decompose_rounds.launches
         for i, D in enumerate(mats):
             srv.submit(f"t{i % 2}", D)
         res = srv.drain()
-        assert auction_rounds.launches > before
+        assert decompose_rounds.launches > before
         assert all(r.report.validated for r in res.values())
         outs[mode] = sorted((r.ticket, r.makespan, r.num_configs) for r in res.values())
     assert outs["sync"] == outs["async"] and len(outs["sync"]) == len(mats)
